@@ -1,0 +1,114 @@
+"""Negacyclic NTT tables (host numpy) for the radix-2 NTT in the JAX
+``mxu`` slot order (counterpart of spiral_tpu/arith/tables.py, which
+cannot be imported without jax).
+
+The transform is x -> X with X[k] = sum_i x_i psi^{(2k+1) i}, psi the
+primitive 2d-th root of unity g^{(p-1)/2d} for the smallest primitive root
+g of p (the root both JAX engines use).  The radix-2 decimation-in-
+frequency network leaves X[bitrev(pos)] at position pos; the JAX ``mxu``
+four-step engine (spiral_tpu/arith/ntt_mxu.py, d = d1*d2) stores X[d1*e + c]
+at slot c*d2 + e.  ``pos_of_slot`` maps one order onto the other.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache
+
+import numpy as np
+
+from spiral_tpu.params import B_I, P_I
+
+
+def _factorize(n: int) -> list[int]:
+    fs, f = [], 2
+    while f * f <= n:
+        if n % f == 0:
+            fs.append(f)
+            while n % f == 0:
+                n //= f
+        f += 1
+    if n > 1:
+        fs.append(n)
+    return fs
+
+
+def primitive_root(p: int) -> int:
+    phi = p - 1
+    fs = _factorize(phi)
+    g = 2
+    while not all(pow(g, phi // q, p) != 1 for q in fs):
+        g += 1
+    return g
+
+
+def _powers(base: int, n: int, p: int) -> np.ndarray:
+    out = np.empty(n, dtype=np.int64)
+    cur = 1
+    for i in range(n):
+        out[i] = cur
+        cur = cur * base % p
+    return out
+
+
+def bitrev(n_bits: int, n: int) -> np.ndarray:
+    idx = np.arange(n)
+    out = np.zeros(n, dtype=np.int64)
+    for b in range(n_bits):
+        out |= ((idx >> b) & 1) << (n_bits - 1 - b)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NttTables:
+    """Tables for one ring degree d, both moduli stacked on axis 0."""
+
+    d: int
+    twist: np.ndarray        # (2, d) psi^i
+    untwist: np.ndarray      # (2, d) d^{-1} psi^{-i}
+    omega: np.ndarray        # (2, d) omega^k (k < d/2 used), omega = psi^2
+    omega_inv: np.ndarray    # (2, d) omega^{-k}
+    pos_of_slot: np.ndarray  # (d,) mxu slot j -> radix-2 output position
+    slot_of_pos: np.ndarray  # (d,) inverse permutation
+
+    def packed(self) -> np.ndarray:
+        """(10, d) int32 table the CUDA kernels read: rows li*4 + r for
+        r = twist, untwist, omega, omega_inv; row 8 pos_of_slot, row 9
+        slot_of_pos."""
+        rows = []
+        for li in range(2):
+            rows += [self.twist[li], self.untwist[li], self.omega[li],
+                     self.omega_inv[li]]
+        rows += [self.pos_of_slot, self.slot_of_pos]
+        return np.stack(rows).astype(np.int32)
+
+
+def mxu_split(d: int) -> tuple[int, int]:
+    """(d1, d2) of the JAX four-step engine (FourStepNtt.__init__)."""
+    L = d.bit_length() - 1
+    d1 = 1 << ((L + 1) // 2)
+    return d1, d // d1
+
+
+@lru_cache(maxsize=None)
+def ntt_tables(d: int) -> NttTables:
+    assert d & (d - 1) == 0 and d >= 4
+    L = d.bit_length() - 1
+    tw, utw, om, omi = [], [], [], []
+    for p in (P_I, B_I):
+        assert (p - 1) % (2 * d) == 0
+        psi = pow(primitive_root(p), (p - 1) // (2 * d), p)
+        psi_inv = pow(psi, p - 2, p)
+        d_inv = pow(d, p - 2, p)
+        tw.append(_powers(psi, d, p))
+        utw.append(_powers(psi_inv, d, p) * d_inv % p)
+        om.append(_powers(psi * psi % p, d, p))
+        omi.append(_powers(psi_inv * psi_inv % p, d, p))
+    d1, d2 = mxu_split(d)
+    j = np.arange(d)
+    k = d1 * (j % d2) + j // d2
+    pos_of_slot = bitrev(L, d)[k]
+    slot_of_pos = np.empty(d, dtype=np.int64)
+    slot_of_pos[pos_of_slot] = j
+    return NttTables(d=d, twist=np.stack(tw), untwist=np.stack(utw),
+                     omega=np.stack(om), omega_inv=np.stack(omi),
+                     pos_of_slot=pos_of_slot, slot_of_pos=slot_of_pos)

@@ -1,0 +1,55 @@
+"""Randomness (counterpart of spiral_tpu/core/sampling.py).
+
+Client noise comes from a torch.Generator on the CPU, so a seed gives the
+same keys whatever device the client computes on; it does not reproduce
+jax.random's bits.  ``uniform_residues_jax`` is the one sampler that must
+match JAX bit for bit: the server rebuilds query `a` halves with it.
+"""
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import torch
+
+from spiral_tpu.params import B_I, P_I
+from . import threefry
+
+GAUSS_WIDTH = 6.4
+NUM_WIDTHS = 10
+MAX_VAL = int(math.ceil(GAUSS_WIDTH * NUM_WIDTHS))  # 64
+
+
+@lru_cache(maxsize=None)
+def _gauss_probs() -> torch.Tensor:
+    i = torch.arange(-MAX_VAL, MAX_VAL + 1, dtype=torch.float64)
+    return torch.exp(-math.pi * i ** 2 / GAUSS_WIDTH ** 2)
+
+
+def gaussian_values(gen: torch.Generator, shape) -> torch.Tensor:
+    """Discrete gaussian of width 6.4 on [-64, 64] (int64, CPU)."""
+    n = math.prod(shape)
+    idx = torch.multinomial(_gauss_probs(), n, replacement=True,
+                            generator=gen)
+    return (idx - MAX_VAL).reshape(shape)
+
+
+def ternary_values(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randint(0, 3, tuple(shape), generator=gen) - 1
+
+
+def uniform_residues(gen: torch.Generator, shape) -> torch.Tensor:
+    """Uniform over Z_Q as independent residues: shape (..., d) ->
+    (..., 2, d) int32 (CPU)."""
+    x = torch.randint(0, P_I, tuple(shape), generator=gen)
+    y = torch.randint(0, B_I, tuple(shape), generator=gen)
+    return torch.stack([x, y], dim=-2).to(torch.int32)
+
+
+def uniform_residues_jax(key: tuple[int, int], shape, device) -> torch.Tensor:
+    """spiral_tpu.core.sampling.uniform_residues(jax key, shape), bit for
+    bit: (..., d) -> (..., 2, d) int32."""
+    kp, kb = threefry.split(key)
+    x = threefry.randint_u32(kp, shape, P_I, device)
+    y = threefry.randint_u32(kb, shape, B_I, device)
+    return torch.stack([x, y], dim=-2).to(torch.int32)

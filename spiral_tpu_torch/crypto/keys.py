@@ -1,0 +1,36 @@
+"""Secret keys (counterpart of spiral_tpu/crypto/keys.py): Sp, an n x k
+small matrix, and the scalar Regev secret sr, both coefficient domain."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from spiral_tpu.params import Params
+from ..arith.crt import residues_from_values
+from ..core.sampling import gaussian_values, ternary_values
+
+
+@dataclasses.dataclass
+class SecretKeys:
+    Sp: torch.Tensor          # (n, k, 2, d) int32, coeff
+    sr: torch.Tensor          # (1, 1, 2, d) int32, coeff
+    Sp_centered: np.ndarray   # (n, k, d) int64
+    sr_centered: np.ndarray   # (d,) int64
+
+
+def _sample_small(gen, shape, ternary: bool, nonoise: bool) -> torch.Tensor:
+    if nonoise:
+        return torch.zeros(shape, dtype=torch.int64)
+    return (ternary_values if ternary else gaussian_values)(gen, shape)
+
+
+def keygen(params: Params, gen: torch.Generator, device,
+           nonoise: bool = False) -> SecretKeys:
+    n, k, d = params.n0, params.k_param, params.poly_len
+    sp = _sample_small(gen, (n, k, d), params.ternary, nonoise)
+    sr = _sample_small(gen, (1, 1, d), params.ternary, nonoise)
+    return SecretKeys(Sp=residues_from_values(sp).to(device),
+                      sr=residues_from_values(sr).to(device),
+                      Sp_centered=sp.numpy(), sr_centered=sr[0, 0].numpy())

@@ -1,0 +1,128 @@
+"""Build, load and count the CUDA kernels in spiral_tpu_torch/csrc.
+
+The sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes.  The build runs at first use, into
+spiral_tpu_torch/_build/, and again whenever a source changes (the library
+name carries a hash of the sources and flags).  Nothing here runs at
+import, so the package imports on machines without CUDA.
+
+Every C entry point launches on the stream it is given and returns
+cudaGetLastError(); ``check`` raises on a nonzero code.  ``LAUNCHES``
+counts kernel launches per kernel: each wrapper adds one where it
+launches and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+SOURCES = ("ntt.cu", "firstdim.cu", "fold.cu", "expand.cu")
+HEADERS = ("common.cuh", "ntt.cuh")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"ntt": 0, "firstdim": 0, "fold": 0, "expand": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "spiral_ntt": (_P, _P, _P, _I, _I, _I, _P),
+    "spiral_firstdim": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "spiral_fold_round": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "spiral_expand_keyswitch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+_lib = None
+build_log = ""
+build_seconds = 0.0
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return nvcc
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into _build/libspiral_<hash>.so unless that
+    library exists.  verbose adds -Xptxas -v (which leaves the binary as
+    it is) and keeps its report in ``build_log``."""
+    global build_log, build_seconds
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update((CSRC / name).read_bytes())
+    so = BUILD_DIR / f"libspiral_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib(verbose: bool = False):
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        so = build(verbose)
+        handle = ctypes.CDLL(str(so))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def on_cpu(*ts: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the plain path); raises on
+    a mix of devices.  A CUDA tensor always goes to the kernel."""
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"}:
+        raise ValueError(f"tensors on mixed or unsupported devices: {devs}")
+    return False
+
+
+def require(t: torch.Tensor, shape: tuple, name: str) -> None:
+    """Check a kernel operand: CUDA, int32, contiguous, the given shape."""
+    if t.device.type != "cuda" or t.dtype != torch.int32 or \
+            not t.is_contiguous() or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: want a contiguous int32 CUDA tensor of shape "
+            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream

@@ -1,0 +1,73 @@
+"""Database generation and encoding (counterpart of spiral_tpu/server/db.py).
+
+The port keeps the encoded database in the layout the first-dimension
+kernel K2 streams:
+
+    data[limb, z, j*n0 + r, pos*n2 + c]       (2, d, K = dim0*n0, m = num_per*n2)
+
+with NTT slot z and CRT limb outermost, so one (limb, z) slice is a
+contiguous K x m matrix and each k row of it is m consecutive residues
+(coalesced loads across a warp).  Further-index ii sits at row position
+pos = bitrev(ii), as in the JAX layout (num_per, n2, K, 2, d), so fold
+rounds pair adjacent ciphertexts.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from spiral_tpu.params import Params
+from ..arith import ntt
+from ..arith.crt import residues_from_values
+
+# database items NTT'd per upload block of encode_db
+BLOCK_ITEMS = 8192
+
+
+@dataclasses.dataclass
+class EncodedDb:
+    data: torch.Tensor    # (2, d, dim0*n0, num_per*n2) int32, NTT domain
+    params: Params
+
+
+def bitrev_perm(n: int) -> np.ndarray:
+    """perm[pos] = further index stored at pos (bit reversal, an involution)."""
+    bits = n.bit_length() - 1
+    out = np.zeros(n, dtype=np.int64)
+    for i in range(n):
+        out[i] = int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+    return out
+
+
+def random_db(params: Params, rng: np.random.Generator) -> np.ndarray:
+    """Host plaintexts (total_n, n0, n2, d) in [0, p_db); the same draws as
+    spiral_tpu.server.db.random_db for the same generator state."""
+    return rng.integers(
+        0, params.p_db,
+        size=(params.total_n, params.n0, params.n2, params.poly_len),
+        dtype=np.int64)
+
+
+def encode_db(pts: np.ndarray, params: Params, device) -> EncodedDb:
+    """Center mod p_db, lift, NTT on `device`, and write the K2 layout,
+    one block of first-dimension rows at a time (a block uploads as int16
+    when p_db allows)."""
+    p_db, d = params.p_db, params.poly_len
+    num_per, dim0, n0, n2 = params.num_per, params.dim0, params.n0, params.n2
+    small = np.int16 if p_db <= (1 << 15) else np.int32
+    perm = torch.from_numpy(bitrev_perm(num_per)).to(device)
+    out = torch.empty((2, d, dim0 * n0, num_per * n2), dtype=torch.int32,
+                      device=device)
+    jb = max(1, min(dim0, BLOCK_ITEMS // num_per))
+    for j0 in range(0, dim0, jb):
+        j1 = min(dim0, j0 + jb)
+        block = pts[j0 * num_per:j1 * num_per]
+        centered = np.where(block >= p_db // 2, block - p_db, block)
+        c = torch.from_numpy(centered.astype(small)).to(device).long()
+        t = ntt.forward(residues_from_values(c))   # (nb*num_per, n0, n2, 2, d)
+        t = t.reshape(j1 - j0, num_per, n0, n2, 2, d)[:, perm]
+        out[:, :, j0 * n0:j1 * n0] = t.permute(4, 5, 0, 2, 1, 3).reshape(
+            2, d, (j1 - j0) * n0, num_per * n2)
+    return EncodedDb(data=out, params=params)

@@ -1,0 +1,93 @@
+"""Automorphism-based coefficient expansion (counterpart of
+spiral_tpu/server/expand.py).
+
+Round r maps 2^r cts to 2^{r+1}: cv[num_in + i] = x^{-2^r} cv[i], then
+cv[i] += KeySwitch_W(tau_t(cv[i])), t = d/2^r + 1, with W_left and m_exp
+digits on even slots and W_right and m_exp_right on odd ones.  tau_t is
+a coefficient-domain gather after the inverse NTT (K1).  The key switch
+is kernel K4 (csrc/expand.cu) on CUDA tensors, replacing the Pallas
+key-switch (spiral_tpu/server/expand_pallas.py _keyswitch_call); on the
+CPU it runs ``keyswitch_plain``.
+"""
+from __future__ import annotations
+
+import torch
+
+from spiral_tpu.params import Params
+from .. import kernels
+from ..arith import ntt
+from ..core.gadget import gadget_invert_raw
+from ..core.poly import add_raw, automorph_raw, matmul_raw, monomial, \
+    scalar_mul_raw
+
+
+def keyswitch_plain(cv: torch.Tensor, c_auto: torch.Tensor, W: torch.Tensor,
+                    m: int) -> torch.Tensor:
+    """cv (N, 2, 1, 2, d) NTT, c_auto = tau(inverse(cv)) (N, 2, 1, 2, d)
+    coeff, W (2, m, 2, d) NTT -> cv + W @ NTT(G^{-1}(c_auto row 0)), with
+    NTT(c_auto row 1) added to the bottom row."""
+    ginv = ntt.forward_plain(gadget_invert_raw(c_auto[:, 0:1], m, 1))
+    out = add_raw(cv, matmul_raw(W, ginv))
+    bottom = add_raw(out[:, 1:2], ntt.forward_plain(c_auto[:, 1:2]))
+    return torch.cat([out[:, :1], bottom], dim=1)
+
+
+def keyswitch(cv: torch.Tensor, c_auto: torch.Tensor, W: torch.Tensor,
+              m: int) -> torch.Tensor:
+    if kernels.on_cpu(cv, c_auto, W):
+        return keyswitch_plain(cv, c_auto, W, m)
+    N, d = cv.shape[0], cv.shape[-1]
+    for t, name in ((cv, "expand cv"), (c_auto, "expand c_auto")):
+        kernels.require(t, (N, 2, 1, 2, d), name)
+    kernels.require(W, (2, m, 2, d), "expand W")
+    if not 64 <= d <= 2048 or d & (d - 1):
+        raise ValueError(f"expand kernel takes 64 <= d <= 2048, got {d}")
+    out = torch.empty_like(cv)
+    if N:
+        kernels.check(kernels.lib().spiral_expand_keyswitch(
+            cv.data_ptr(), c_auto.data_ptr(), W.data_ptr(), out.data_ptr(),
+            ntt.kernel_table(d, cv.device).data_ptr(), N, m, d,
+            kernels.stream()), "spiral_expand_keyswitch")
+        kernels.LAUNCHES["expand"] += 1
+    return out
+
+
+def coefficient_expansion(cv0: torch.Tensor, g: int, W_left: list,
+                          W_right: list, params: Params,
+                          max_bits_to_gen_right: int = 0,
+                          stopround: int = 0) -> torch.Tensor:
+    """Expand one ct (2, 1, 2, d) NTT into 2^g cts (2^g, 2, 1, 2, d).  With
+    stopround > 0, odd slots stop after round `stopround`, where only odd
+    slot i <= max_bits_to_gen_right is updated (expand.py:131-167)."""
+    d = params.poly_len
+    cv = cv0[None]
+    for r in range(g):
+        t = (d >> r) + 1
+        neg1 = ntt.forward(monomial(-1, d - (1 << r), d, cv.device))[0, 0]
+        cv = torch.cat([cv, scalar_mul_raw(neg1, cv)], dim=0)
+        evens, odds = cv[0::2].contiguous(), cv[1::2].contiguous()
+        odd_live = stopround == 0 or r <= stopround
+        todo = cv if odd_live else evens
+        c_auto = automorph_raw(ntt.inverse(todo), t)
+        if odd_live:
+            c_even, c_odd = c_auto[0::2].contiguous(), c_auto[1::2].contiguous()
+        else:
+            c_even = c_auto
+        new_evens = keyswitch(evens, c_even, W_left[r], params.m_exp)
+        if not odd_live:
+            new_odds = odds
+        else:
+            keep = odds.shape[0]
+            if stopround > 0 and r == stopround:
+                keep = min(keep, max_bits_to_gen_right + 1)
+            new_odds = torch.cat([
+                keyswitch(odds[:keep], c_odd[:keep], W_right[r],
+                          params.m_exp_right), odds[keep:]])
+        cv = torch.stack([new_evens, new_odds], dim=1).reshape(
+            (cv.shape[0],) + cv.shape[1:])
+    return cv
+
+
+def reorder_from_stopround(cv, even_count: int, odd_count: int):
+    """Evens first, then odds."""
+    return torch.cat([cv[0::2][:even_count], cv[1::2][:odd_count]])

@@ -1,0 +1,74 @@
+"""GSW external-product folding (counterpart of spiral_tpu/server/fold.py).
+
+Each round halves the ciphertexts with the homomorphic mux
+C <- q_neg . G^{-1}(C_even) + q_pos . G^{-1}(C_odd), with signed gadget
+digits.  Rows are in bit-reversed further-index order, so a round pairs
+adjacent cts (2o, 2o+1).
+
+On CUDA tensors a round is one launch of kernel K3 (csrc/fold.cu), which
+replaces the Pallas fold round (spiral_tpu/server/fold_pallas.py
+_fold_round_call, signed); on the CPU it runs ``fold_round_plain``.
+"""
+from __future__ import annotations
+
+import torch
+
+from spiral_tpu.params import Params
+from .. import kernels
+from ..arith import ntt
+from ..core.gadget import gadget_invert_signed_raw
+from ..core.poly import add_raw, matmul_raw
+
+
+def fold_round_plain(cts: torch.Tensor, q_neg: torch.Tensor,
+                     q_pos: torch.Tensor, t_gsw: int) -> torch.Tensor:
+    """cts (2m, n1, n2, 2, d) coeff; q_neg/q_pos (n1, t_gsw*n1, 2, d) NTT ->
+    (m, n1, n2, 2, d) coeff."""
+    n1 = cts.shape[1]
+    g_even = ntt.forward_plain(gadget_invert_signed_raw(cts[0::2], t_gsw, n1))
+    g_odd = ntt.forward_plain(gadget_invert_signed_raw(cts[1::2], t_gsw, n1))
+    return ntt.inverse_plain(add_raw(matmul_raw(q_neg, g_even),
+                                     matmul_raw(q_pos, g_odd)))
+
+
+def fold_round(cts: torch.Tensor, q_neg: torch.Tensor, q_pos: torch.Tensor,
+               t_gsw: int) -> torch.Tensor:
+    if kernels.on_cpu(cts, q_neg, q_pos):
+        return fold_round_plain(cts, q_neg, q_pos, t_gsw)
+    two_m, n1, n2, _, d = cts.shape
+    m2 = t_gsw * n1
+    kernels.require(cts, (two_m, n1, n2, 2, d), "fold cts")
+    kernels.require(q_neg, (n1, m2, 2, d), "fold q_neg")
+    kernels.require(q_pos, (n1, m2, 2, d), "fold q_pos")
+    if n1 != 3 or two_m % 2 or not 64 <= d <= 2048 or d & (d - 1):
+        raise ValueError(f"fold kernel takes n1 = 3, an even ct count and "
+                         f"64 <= d <= 2048; got {tuple(cts.shape)}")
+    out = torch.empty((two_m // 2, n1, n2, 2, d), dtype=torch.int32,
+                      device=cts.device)
+    kernels.check(kernels.lib().spiral_fold_round(
+        cts.data_ptr(), q_neg.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        ntt.kernel_table(d, cts.device).data_ptr(), two_m // 2, n1, n2,
+        t_gsw, d, kernels.stream()), "spiral_fold_round")
+    kernels.LAUNCHES["fold"] += 1
+    return out
+
+
+def fold_rounds(cts_coeff: torch.Tensor, q_pos: torch.Tensor,
+                q_neg: torch.Tensor, params: Params, start_round: int = 0,
+                num_rounds: int | None = None) -> torch.Tensor:
+    """Run `num_rounds` rounds (all remaining if None) from global round
+    `start_round`, which selects the q_pos/q_neg slot.  cts_coeff
+    (m, n1, n2, 2, d) coeff; q_pos/q_neg (nu_2, n1, m2, 2, d) NTT."""
+    rounds = cts_coeff.shape[0].bit_length() - 1
+    rounds = rounds if num_rounds is None else num_rounds
+    for r in range(start_round, start_round + rounds):
+        cts_coeff = fold_round(cts_coeff.contiguous(), q_neg[r].contiguous(),
+                               q_pos[r].contiguous(), params.t_gsw)
+    return cts_coeff
+
+
+def fold_ciphertexts(cts_coeff, q_pos, q_neg, params: Params,
+                     start_round: int = 0) -> torch.Tensor:
+    """Fold down to the single survivor (n1, n2, 2, d), coeff domain."""
+    return fold_rounds(cts_coeff, q_pos, q_neg, params,
+                       start_round=start_round)[0]

@@ -10,3 +10,8 @@ import jax
 # Mosaic-compiled Pallas kernels) get unit-test coverage on a TPU machine.
 if not os.environ.get("SPIRAL_TEST_TPU"):
     jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")

@@ -1,0 +1,70 @@
+"""CUDA kernels K1-K4 against their plain PyTorch versions on the card, bit
+for bit.  Every test is marked `gpu` and takes the `cuda` fixture, which
+skips it on a machine without a CUDA device.  On the card (no jax there, so skip the suite's
+conftest, which imports it):
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+"""
+import pytest
+import torch
+
+from spiral_tpu.params import B_I, P_I
+from spiral_tpu_torch import kernels
+from spiral_tpu_torch.arith import ntt
+from spiral_tpu_torch.server import expand, firstdim, fold
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    kernels.lib()
+    kernels.reset_launches()
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _residues(gen, shape):
+    limbs = [torch.randint(0, p, shape, generator=gen, dtype=torch.int32,
+                           device="cuda") for p in (P_I, B_I)]
+    return torch.stack(limbs, dim=-2)
+
+
+def _same(got, want, kernel):
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert kernels.LAUNCHES[kernel] == 1
+
+
+@pytest.mark.parametrize("d", [256, 2048])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_ntt_kernel(cuda, d, direction):
+    x = _residues(cuda, (5, 3, d))
+    _same(getattr(ntt, direction)(x),
+          getattr(ntt, direction + "_plain")(x), "ntt")
+
+
+def test_firstdim_kernel(cuda):
+    d, K, m, n1 = 64, 512, 256, 3
+    db = _residues(cuda, (d, K, m)).permute(2, 0, 1, 3).contiguous()
+    qk = _residues(cuda, (K, n1, d))
+    _same(firstdim.multiply_query_by_db(db, qk),
+          firstdim.multiply_plain(db, qk), "firstdim")
+
+
+@pytest.mark.parametrize("t_gsw", [8, 9])
+def test_fold_kernel(cuda, t_gsw):
+    d = 2048
+    cts = _residues(cuda, (8, 3, 2, d))
+    qn, qp = (_residues(cuda, (3, 3 * t_gsw, d)) for _ in range(2))
+    _same(fold.fold_round(cts, qn, qp, t_gsw),
+          fold.fold_round_plain(cts, qn, qp, t_gsw), "fold")
+
+
+@pytest.mark.parametrize("m", [8, 56])
+def test_expand_kernel(cuda, m):
+    d = 2048
+    cv, ca = (_residues(cuda, (6, 2, 1, d)) for _ in range(2))
+    W = _residues(cuda, (2, m, d))
+    _same(expand.keyswitch(cv, ca, W, m),
+          expand.keyswitch_plain(cv, ca, W, m), "expand")
