@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from spiral_tpu.params import B_I, P_I, Q
+from ..params import B_I, P_I, Q
 
 P_INV_MOD_B = pow(P_I, B_I - 2, B_I)
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from spiral_tpu.params import B_I, P_I
+from ..params import B_I, P_I
 
 MODS = (P_I, B_I)
 

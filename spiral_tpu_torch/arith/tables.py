@@ -16,7 +16,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from spiral_tpu.params import B_I, P_I
+from ..params import B_I, P_I
 
 
 def _factorize(n: int) -> list[int]:

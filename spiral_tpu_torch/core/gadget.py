@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from spiral_tpu.params import Q, get_bits_per
+from ..params import Q, get_bits_per
 from ..arith.crt import const_residues, lift_pair
 from ..arith.mod import p_col
 

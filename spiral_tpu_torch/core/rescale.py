@@ -1,12 +1,11 @@
-"""Exact modulus switching of CRT residues (counterpart of
-spiral_tpu/core/rescale.py rescale_residues_device).  The host-side
-rescale_array, pack_bits and unpack_bits import from spiral_tpu as they
-are."""
+"""Exact modulus switching of CRT residues on the server's device
+(counterpart of spiral_tpu/core/rescale.py rescale_residues_device).  The
+client's decode needs no host-side rescale (crypto/decode.py)."""
 from __future__ import annotations
 
 import torch
 
-from spiral_tpu.params import Q
+from ..params import Q
 from ..arith.crt import lift_pair
 
 

@@ -12,7 +12,7 @@ from functools import lru_cache
 
 import torch
 
-from spiral_tpu.params import B_I, P_I
+from ..params import B_I, P_I
 from . import threefry
 
 GAUSS_WIDTH = 6.4

@@ -1,5 +1,6 @@
 """Secret keys (counterpart of spiral_tpu/crypto/keys.py): Sp, an n x k
-small matrix, and the scalar Regev secret sr, both coefficient domain."""
+small matrix, and the scalar Regev secret sr, both coefficient domain.  The
+Spiral client uses n = n0, k = n1 - n0; the pack client n = out_n, k = 1."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,7 +8,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spiral_tpu.params import Params
+from ..params import Params
 from ..arith.crt import residues_from_values
 from ..core.sampling import gaussian_values, ternary_values
 
@@ -27,8 +28,11 @@ def _sample_small(gen, shape, ternary: bool, nonoise: bool) -> torch.Tensor:
 
 
 def keygen(params: Params, gen: torch.Generator, device,
+           n_val: int | None = None, k: int | None = None,
            nonoise: bool = False) -> SecretKeys:
-    n, k, d = params.n0, params.k_param, params.poly_len
+    n = params.n0 if n_val is None else n_val
+    k = params.k_param if k is None else k
+    d = params.poly_len
     sp = _sample_small(gen, (n, k, d), params.ternary, nonoise)
     sr = _sample_small(gen, (1, 1, d), params.ternary, nonoise)
     return SecretKeys(Sp=residues_from_values(sp).to(device),

@@ -7,7 +7,7 @@ import dataclasses
 
 import torch
 
-from spiral_tpu.params import Params
+from ..params import Params
 from ..arith import ntt
 from ..core.gadget import build_gadget
 from ..core.poly import automorph_raw, matmul_raw, scalar_mul_raw

@@ -9,7 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spiral_tpu.params import Params, Q, get_bits_per
+from ..params import Params, Q, get_bits_per
 from ..arith import ntt
 from ..arith.crt import residues_from_values
 from ..core.poly import add_raw, neg_raw, scalar_mul_raw
@@ -39,13 +39,14 @@ def reconstruct_cts(seed: int, b_ntt: torch.Tensor) -> torch.Tensor:
     return torch.cat([neg_raw(a), b_ntt], dim=-4)
 
 
-def sigma_poly(params: Params, idx: int) -> np.ndarray:
-    """The packed query's plaintext (query.py:69-96): (d,) python ints."""
+def sigma_poly(params: Params, idx: int, g: int, stop: int) -> np.ndarray:
+    """The packed query's plaintext (query.py:69-96) for an expansion of g
+    rounds whose odd slots stop after round `stop` (0: no stop): (d,)
+    python ints."""
     d = params.poly_len
     idx_dim0, idx_further = divmod(idx, params.num_per)
     ell = params.t_gsw
     bits_per = get_bits_per(ell)
-    g, stop = params.g, params.stopround
     sig = np.zeros(d, dtype=object)
     if stop != 0:
         sig[2 * idx_dim0] = params.scale_k
@@ -65,13 +66,18 @@ def sigma_poly(params: Params, idx: int) -> np.ndarray:
     return sig
 
 
-def generate_query(params: Params, enc: Encryptor, idx: int) -> Query:
+def generate_query(params: Params, enc: Encryptor, idx: int,
+                   g_stop: tuple[int, int] | None = None) -> Query:
+    """One packed ct for record idx.  g_stop is the expansion's (g, stop):
+    (params.g, params.stopround) for Spiral, pack_g_stop for the pack
+    variant."""
     if params.expansion_plan() is not None:
         raise NotImplementedError("only the packed one-ct query form")
     d, dev = params.poly_len, enc.device
+    g, stop = g_stop or (params.g, params.stopround)
     seed = int(torch.randint(0, np.iinfo(np.int32).max, (),
                              generator=enc.gen))
-    sig = torch.tensor(sigma_poly(params, idx).astype(np.int64))
+    sig = torch.tensor(sigma_poly(params, idx, g, stop).astype(np.int64))
     sig_ntt = ntt.forward(residues_from_values(sig)[None, None, None]
                           .to(dev))
     a_ntt = derive_a_ntt(seed, 1, d, dev)

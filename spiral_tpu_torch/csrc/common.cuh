@@ -53,7 +53,7 @@ __device__ __forceinline__ uint64_t lift(uint32_t x, uint32_t y) {
   return (uint64_t)x + (uint64_t)P_I * t;
 }
 
-// Gadget digit width for a gadget of `dim` digits (spiral_tpu.params).
+// Gadget digit width for a gadget of `dim` digits (params.get_bits_per).
 __device__ __forceinline__ int bits_per(int dim) {
   return dim == 56 ? 1 : 56 / dim + 1;
 }

@@ -2,22 +2,25 @@
 
 Both packages keep residues below 2^28 in the same (..., 2, d) layout and
 the same NTT slot order, so keys, public params and queries convert by a
-dtype change; only the encoded database changes layout (server/db.py).
-Callers turn JAX arrays into numpy with np.asarray.
+dtype change; only the encoded databases change layout (server/db.py,
+pack.py).  Callers turn JAX arrays into numpy with np.asarray.  Every
+converter puts its tensors on `device`, the card unless the caller names
+another.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from spiral_tpu.params import Params
+from .params import Params
 from .crypto.keys import SecretKeys
 from .crypto.publicparams import PublicParams
 from .crypto.query import Query
+from .pack import PackPublicParams
 from .server.db import EncodedDb
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
+def to_torch(a, device="cuda") -> torch.Tensor:
     """uint32 residues (numpy) -> int32 tensor."""
     a = np.asarray(a)
     assert a.size == 0 or int(a.max()) < (1 << 31)
@@ -29,16 +32,17 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.uint32)
 
 
-def secret_keys(Sp, sr, Sp_centered, sr_centered, device="cpu") -> SecretKeys:
-    """From spiral_tpu SecretKeys fields: Sp.data, sr.data (uint32) and the
-    centered int64 arrays."""
+def secret_keys(Sp, sr, Sp_centered, sr_centered, device="cuda"
+                ) -> SecretKeys:
+    """From spiral_tpu SecretKeys fields (either client's): Sp.data, sr.data
+    (uint32) and the centered int64 arrays."""
     return SecretKeys(Sp=to_torch(Sp, device), sr=to_torch(sr, device),
                       Sp_centered=np.asarray(Sp_centered, dtype=np.int64),
                       sr_centered=np.asarray(sr_centered, dtype=np.int64))
 
 
 def public_params(W_exp_left, W_exp_right, W_conv, V,
-                  device="cpu") -> PublicParams:
+                  device="cuda") -> PublicParams:
     """From spiral_tpu PublicParams: the lists of W_exp_*[r].data and
     W_conv.data, V.data."""
     return PublicParams(
@@ -47,7 +51,27 @@ def public_params(W_exp_left, W_exp_right, W_conv, V,
         W_conv=to_torch(W_conv, device), V=to_torch(V, device))
 
 
-def encoded_db(data, params: Params, device="cpu") -> EncodedDb:
+def pack_public_params(v_W, W_exp_left, W_exp_right, V,
+                       device="cuda") -> PackPublicParams:
+    """From spiral_tpu.pack PackPublicParams: v_W, the lists of
+    W_exp_*[r].data and V.data."""
+    return PackPublicParams(
+        v_W=to_torch(v_W, device),
+        W_exp_left=[to_torch(w, device) for w in W_exp_left],
+        W_exp_right=[to_torch(w, device) for w in W_exp_right],
+        V=to_torch(V, device))
+
+
+def pack_public_params_to_numpy(pub: PackPublicParams) -> dict:
+    """The fields of a spiral_tpu.pack PackPublicParams as uint32 arrays
+    (W_exp_left/right as lists)."""
+    return {"v_W": to_numpy(pub.v_W),
+            "W_exp_left": [to_numpy(w) for w in pub.W_exp_left],
+            "W_exp_right": [to_numpy(w) for w in pub.W_exp_right],
+            "V": to_numpy(pub.V)}
+
+
+def encoded_db(data, params: Params, device="cuda") -> EncodedDb:
     """spiral_tpu EncodedDb.data (num_per, n2, K, 2, d) -> the port's
     (2, d, K, num_per*n2) layout."""
     t = to_torch(data, device)
@@ -64,8 +88,26 @@ def encoded_db_to_jax_layout(db: EncodedDb) -> np.ndarray:
     return to_numpy(t)
 
 
-def query(seed: int, packed_b, device="cpu") -> Query:
-    """From a spiral_tpu Query (seed, packed_b)."""
+def pack_encoded_db(data, params: Params, device="cuda") -> EncodedDb:
+    """spiral_tpu.pack encode_pack_db data (T, num_per, 1, dim0, 2, d) ->
+    the port's (2, d, dim0, T*num_per) layout."""
+    t = to_torch(data, device)[:, :, 0]
+    T, num_per, dim0, _, d = t.shape
+    return EncodedDb(t.permute(3, 4, 2, 0, 1).reshape(2, d, dim0,
+                                                      T * num_per)
+                     .contiguous(), params)
+
+
+def pack_encoded_db_to_jax_layout(db: EncodedDb) -> np.ndarray:
+    """The port's pack database -> spiral_tpu.pack's layout (uint32)."""
+    p = db.params
+    _, d, dim0, _ = db.data.shape
+    t = db.data.reshape(2, d, dim0, p.out_n ** 2, p.num_per)
+    return to_numpy(t.permute(3, 4, 2, 0, 1)[:, :, None])
+
+
+def query(seed: int, packed_b, device="cuda") -> Query:
+    """From a spiral_tpu Query (seed, packed_b), either client's."""
     b = to_torch(packed_b, device)
     return Query(seed=int(seed), packed_b=b, size_bytes=b.shape[-1] * 7)
 

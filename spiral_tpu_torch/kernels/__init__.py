@@ -1,6 +1,7 @@
 """Build, load and count the CUDA kernels in spiral_tpu_torch/csrc.
 
-The sources compile with nvcc into one shared library with a plain C
+The sources compile with nvcc, one process per source, all started
+together, into objects linked into one shared library with a plain C
 interface, loaded with ctypes.  The build runs at first use, into
 spiral_tpu_torch/_build/, and again whenever a source changes (the library
 name carries a hash of the sources and flags).  Nothing here runs at
@@ -26,18 +27,21 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("ntt.cu", "firstdim.cu", "fold.cu", "expand.cu")
+SOURCES = ("ntt.cu", "firstdim.cu", "fold.cu", "expand.cu", "pack.cu")
 HEADERS = ("common.cuh", "ntt.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"ntt": 0, "firstdim": 0, "fold": 0, "expand": 0}
+LAUNCHES = {"ntt": 0, "firstdim": 0, "fold": 0, "expand": 0,
+            "fold_pack": 0, "pack": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "spiral_ntt": (_P, _P, _P, _I, _I, _I, _P),
     "spiral_firstdim": (_P, _P, _P, _I, _I, _I, _I, _P),
     "spiral_fold_round": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "spiral_fold_pack_round": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "spiral_pack": (_P, _P, _P, _P, _I, _I, _I, _P),
     "spiral_expand_keyswitch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
@@ -59,10 +63,28 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; append their output to ``build_log`` and
+    raise if any failed."""
+    global build_log
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        build_log += out
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into _build/libspiral_<hash>.so unless that
-    library exists.  verbose adds -Xptxas -v (which leaves the binary as
-    it is) and keeps its report in ``build_log``."""
+    library exists: one nvcc per source in parallel, then one link.
+    verbose adds -Xptxas -v (which leaves the binary as it is) and keeps
+    its report in ``build_log``."""
     global build_log, build_seconds
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -72,15 +94,22 @@ def build(verbose: bool = False) -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    build_log = ""
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        _run_all([[nvcc, *flags, "-c", "-o", str(o), str(CSRC / s)]
+                  for s, o in zip(SOURCES, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, so)
     return so
 
 

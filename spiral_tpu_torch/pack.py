@@ -1,0 +1,255 @@
+"""SpiralPack, the high-rate variant, on torch (counterpart of
+spiral_tpu/pack.py; ref: src/testing.cpp:777-1155 testHighRate), packed
+one-ciphertext query on one device.
+
+The scheme runs out_n^2 scalar-Regev PIR pipelines ("trials") over 1 x 1
+poly records as one batched program and packs the out_n^2 result cts into
+one (out_n+1) x out_n matrix ct before the two-modulus switch.
+PackServer.process_query runs: expansion (K1, K4), conversion to GSW
+(``regev_to_simple_gsw``), the first-dimension multiply with n1 = 2 query
+rows (K2) and its inverse NTT, the unsigned fold rounds (K6), packing (K7)
+and its inverse NTT, and the modulus switch.  On a CUDA device each stage
+is timed with CUDA events.  The direct-upload form (SpiralStreamPack) is
+not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from .params import Params, get_bits_per
+from .arith import ntt
+from .arith.crt import const_residues, residues_from_values
+from .core.gadget import build_gadget, gadget_invert_raw
+from .core.poly import matmul_raw, scalar_mul_raw, sub_raw
+from .crypto.decode import (Response, decode_response, modswitch_device,
+                            response_from_device_rows)
+from .crypto.encrypt import Encryptor
+from .crypto.keys import SecretKeys, keygen
+from .crypto.publicparams import expansion_keyswitch_matrices
+from .crypto.query import Query, generate_query, reconstruct_cts
+from .pir import ServerTimings, StageClock
+from .server import db as db_mod
+from .server.db import EncodedDb, bitrev_perm
+from .server.expand import coefficient_expansion
+from .server.firstdim import multiply_query_by_db
+from .server.fold import fold_pack_rounds
+from .server.pack import pack_ciphertexts
+
+
+def pack_g_stop(params: Params) -> tuple[int, int]:
+    """Expansion depth for the pack variant (ref: testing.cpp:797-799):
+    stopround is used unconditionally."""
+    ell = params.t_gsw
+    num_bits = ell * params.further_dims + params.dim0
+    g = max(1, math.ceil(math.log2(num_bits)))
+    stop = max(1, math.ceil(math.log2(ell * params.further_dims)))
+    return g, stop
+
+
+@dataclasses.dataclass
+class PackPublicParams:
+    v_W: torch.Tensor      # (out_n, out_n+1, m_conv, 2, d) packing keys, NTT
+    W_exp_left: list       # g tensors (2, m_exp, 2, d), NTT
+    W_exp_right: list      # stop+1 tensors (2, m_exp_right, 2, d), NTT
+    V: torch.Tensor        # (2, 2*m_conv, 2, d) conversion key, NTT
+
+
+def _require_packed(params: Params) -> None:
+    if params.direct_upload_first or params.expansion_plan() is not None:
+        raise NotImplementedError(
+            "only the packed one-ct pack query; SpiralStreamPack's direct "
+            "upload is not ported")
+
+
+def generate_pack_public_params(params: Params, enc: Encryptor
+                                ) -> PackPublicParams:
+    """spiral_tpu/pack.py _pack_setup_inner: v_W[r] = Enc_S(row r = sr*g),
+    expansion keys over g and stop+1 rounds, and V, whose column 2k is
+    Enc_sr(sr^2 z^k) and column 2k+1 Enc_sr(sr z^k) (ref:
+    testing.cpp:917-943)."""
+    d, dev = params.poly_len, enc.device
+    out_n, m_conv = params.out_n, params.m_conv
+    sr_ntt = ntt.forward(enc.keys.sr)[0, 0]
+    s0g = scalar_mul_raw(sr_ntt, ntt.forward(build_gadget(1, m_conv, d, dev)))
+    v_W = []
+    for r in range(out_n):
+        AG = torch.zeros((out_n, m_conv, 2, d), dtype=torch.int32, device=dev)
+        AG[r] = s0g[0]
+        v_W.append(enc.encrypt_matrix(AG))
+    g, stop = pack_g_stop(params)
+    W_left = expansion_keyswitch_matrices(enc, g, params.m_exp, d)
+    W_right = expansion_keyswitch_matrices(enc, stop + 1,
+                                           params.m_exp_right, d)
+    bits = get_bits_per(m_conv)
+    bases = (scalar_mul_raw(sr_ntt, sr_ntt), sr_ntt)
+    sigmas = []
+    for i in range(2 * m_conv):
+        z = torch.tensor(const_residues(1 << (bits * (i // 2))),
+                         device=dev)[:, None]
+        sigmas.append(scalar_mul_raw(z, bases[i % 2]))
+    # one simple-Regev ct per column: independent a and e for each
+    V = enc.encrypt_simple_regev_matrix(torch.stack(sigmas)[None])
+    return PackPublicParams(v_W=torch.stack(v_W), W_exp_left=W_left,
+                            W_exp_right=W_right, V=V)
+
+
+class PackClient:
+    def __init__(self, params: Params, seed: int = 0, device="cuda",
+                 nonoise: bool = False):
+        _require_packed(params)
+        self.params = params
+        self.device = torch.device(device)
+        self.gen = torch.Generator().manual_seed(seed)
+        self.keys: SecretKeys = keygen(params, self.gen, self.device,
+                                       n_val=params.out_n, k=1,
+                                       nonoise=nonoise)
+        self.enc = Encryptor(self.keys, params.poly_len, self.gen,
+                             nonoise=nonoise)
+
+    def setup(self) -> PackPublicParams:
+        return generate_pack_public_params(self.params, self.enc)
+
+    def query(self, idx: int) -> Query:
+        return generate_query(self.params, self.enc, idx,
+                              pack_g_stop(self.params))
+
+    def decode(self, resp: Response) -> np.ndarray:
+        """(out_n, out_n, d) plaintext matrix mod p_db."""
+        return decode_response(resp, self.keys.Sp_centered, self.params)
+
+
+def random_pack_db(params: Params, rng: np.random.Generator) -> np.ndarray:
+    """Host plaintexts (total_n, out_n, out_n, d) in [0, p_db)."""
+    return rng.integers(
+        0, params.p_db,
+        size=(params.total_n, params.out_n, params.out_n, params.poly_len),
+        dtype=np.int64)
+
+
+def encode_pack_db(pts: np.ndarray, params: Params, device) -> EncodedDb:
+    """Center mod p_db, lift, NTT on `device`, and write K2's layout
+
+        data[limb, z, j, t*num_per + pos]     (2, d, K = dim0, T*num_per)
+
+    for record j*num_per + bitrev(pos), trial t = r*out_n + c holding its
+    (r, c) poly (spiral_tpu/pack.py encode_pack_db's (T, num_per, 1, dim0,
+    2, d), transposed as server/db.py lays out Spiral's), one block of
+    first-dimension rows at a time."""
+    p_db, d = params.p_db, params.poly_len
+    num_per, dim0, T = params.num_per, params.dim0, params.out_n ** 2
+    small = np.int16 if p_db <= (1 << 15) else np.int32
+    perm = torch.from_numpy(bitrev_perm(num_per)).to(device)
+    out = torch.empty((2, d, dim0, T * num_per), dtype=torch.int32,
+                      device=device)
+    jb = max(1, min(dim0, db_mod.BLOCK_POLYS // (num_per * T)))
+    for j0 in range(0, dim0, jb):
+        j1 = min(dim0, j0 + jb)
+        block = pts[j0 * num_per:j1 * num_per]
+        centered = np.where(block >= p_db // 2, block - p_db, block)
+        c = torch.from_numpy(centered.astype(small)).to(device).long()
+        t = ntt.forward(residues_from_values(c))   # (nb*num_per, on, on, 2, d)
+        t = t.reshape(j1 - j0, num_per, T, 2, d)[:, perm]
+        out[:, :, j0:j1] = t.permute(3, 4, 0, 2, 1).reshape(
+            2, d, j1 - j0, T * num_per)
+    return EncodedDb(data=out, params=params)
+
+
+def regev_to_simple_gsw(cv: torch.Tensor, V: torch.Tensor,
+                        params: Params) -> torch.Tensor:
+    """cv (nu_2*t_gsw, 2, 1, 2, d) NTT scalar cts -> (nu_2, 2, 2*t_gsw, 2,
+    d) GSW cts, column 2j holding V . G^{-1}(ct j) and column 2j+1 ct j
+    (ref: testing.cpp:108-140)."""
+    ell, d = params.t_gsw, params.poly_len
+    ginv = ntt.forward(gadget_invert_raw(ntt.inverse(cv), 2 * params.m_conv,
+                                         2))
+    tmp = matmul_raw(V, ginv)                       # (nu2*ell, 2, 1, 2, d)
+    pair = torch.stack([tmp[:, :, 0], cv[:, :, 0]], dim=2)
+    return pair.reshape(params.further_dims, ell, 2, 2, 2, d).permute(
+        0, 2, 1, 3, 4, 5).reshape(params.further_dims, 2, 2 * ell, 2, d)
+
+
+class PackServer:
+    def __init__(self, params: Params, db: EncodedDb, pub: PackPublicParams):
+        _require_packed(params)
+        self.params, self.db, self.pub = params, db, pub
+        self.device = db.data.device
+        self._g_ntt = ntt.forward(build_gadget(2, 2 * params.t_gsw,
+                                               params.poly_len, self.device))
+
+    # -- stages (spiral_tpu/pack.py PackServer._build_stages) --
+    def expand(self, seed: int, packed_b: torch.Tensor):
+        """Even slots feed the first dimension, odd slots the GSW sources."""
+        p = self.params
+        packed_ct = reconstruct_cts(seed, packed_b.to(self.device))[0]
+        g, stop = pack_g_stop(p)
+        n_gsw = p.t_gsw * p.further_dims
+        cv = coefficient_expansion(packed_ct, g, self.pub.W_exp_left,
+                                   self.pub.W_exp_right, p,
+                                   max_bits_to_gen_right=n_gsw,
+                                   stopround=stop)
+        return cv[0::2][:p.dim0], cv[1::2][:n_gsw]
+
+    def convert(self, gsw_src):
+        # slot s selects bit nu_2-1-s (ref: testing.cpp:615-619)
+        q_pos = regev_to_simple_gsw(gsw_src, self.pub.V, self.params).flip(0)
+        q_neg = sub_raw(self._g_ntt.expand_as(q_pos), q_pos)
+        return q_pos, q_neg
+
+    def first_dim(self, first):
+        """first (dim0, 2, 1, 2, d) -> (T, num_per, 2, 1, 2, d) coeff."""
+        p = self.params
+        res = multiply_query_by_db(self.db.data, first[:, :, 0])
+        d, T = p.poly_len, p.out_n ** 2
+        cts = res.reshape(2, d, 2, T, p.num_per).permute(3, 4, 2, 0, 1)
+        return ntt.inverse(cts[:, :, :, None])
+
+    def fold(self, cts_coeff, q_pos, q_neg):
+        """-> the (T, 2, 1, 2, d) survivors, coeff."""
+        return fold_pack_rounds(cts_coeff, q_pos, q_neg, self.params)[:, 0]
+
+    def pack(self, result):
+        """-> (out_n+1, out_n, 2, d) coeff."""
+        return ntt.inverse(pack_ciphertexts(result.contiguous(),
+                                            self.pub.v_W))
+
+    def process_query(self, query: Query):
+        """Answer one query: (Response, ServerTimings)."""
+        clock = StageClock(self.device)
+        first, gsw_src = self.expand(query.seed, query.packed_b)
+        clock.mark()
+        q_pos, q_neg = self.convert(gsw_src)
+        clock.mark()
+        cts = self.first_dim(first)
+        clock.mark()
+        result = self.fold(cts, q_pos, q_neg)
+        clock.mark()
+        packed = self.pack(result)
+        clock.mark()
+        first_row, rest = modswitch_device(packed, self.params)
+        clock.mark()
+        t = clock.intervals_us()
+        timings = ServerTimings(
+            expansion_us=t[0], conversion_us=t[1], first_multiply_us=t[2],
+            folding_us=t[3], packing_us=t[4], modswitch_us=t[5])
+        return response_from_device_rows(first_row, rest), timings
+
+
+def run_pack(params: Params, idx: int | None = None, seed: int = 0,
+             nonoise: bool = False, rng: np.random.Generator | None = None,
+             device="cuda"):
+    """Self-checking end-to-end run: (correct, timings, client, server)."""
+    rng = rng or np.random.default_rng(seed)
+    idx = int(rng.integers(0, params.total_n)) if idx is None else idx
+    client = PackClient(params, seed=seed, device=device, nonoise=nonoise)
+    pub = client.setup()
+    pts = random_pack_db(params, rng)
+    server = PackServer(params, encode_pack_db(pts, params,
+                                               torch.device(device)), pub)
+    resp, timings = server.process_query(client.query(idx))
+    correct = bool(np.array_equal(client.decode(resp),
+                                  pts[idx].astype(object)))
+    return correct, timings, client, server

@@ -14,7 +14,7 @@ import time
 import numpy as np
 import torch
 
-from spiral_tpu.params import Params
+from .params import Params
 from .arith import ntt
 from .core.gadget import build_gadget
 from .core.poly import sub_raw
@@ -33,7 +33,7 @@ from .server.fold import fold_ciphertexts
 
 
 class SpiralClient:
-    def __init__(self, params: Params, seed: int = 0, device="cpu",
+    def __init__(self, params: Params, seed: int = 0, device="cuda",
                  nonoise: bool = False):
         self.params = params
         self.device = torch.device(device)
@@ -62,6 +62,7 @@ class ServerTimings:
     conversion_us: float = 0.0
     first_multiply_us: float = 0.0
     folding_us: float = 0.0
+    packing_us: float = 0.0
     modswitch_us: float = 0.0
 
     @property
@@ -69,7 +70,7 @@ class ServerTimings:
         return sum(dataclasses.astuple(self))
 
 
-class _Clock:
+class StageClock:
     """Stage marks: CUDA events on a CUDA device, else the host clock."""
 
     def __init__(self, device: torch.device):
@@ -139,7 +140,7 @@ class SpiralServer:
 
     def process_query(self, query: Query):
         """Answer one query: (Response, ServerTimings)."""
-        clock = _Clock(self.device)
+        clock = StageClock(self.device)
         first_scalars, gsw_scalars = self.expand(query.seed, query.packed_b)
         clock.mark()
         C_reg = self.compose(first_scalars)
@@ -161,7 +162,7 @@ class SpiralServer:
 
 def run_pir(params: Params, idx: int | None = None, seed: int = 0,
             nonoise: bool = False, rng: np.random.Generator | None = None,
-            device="cpu"):
+            device="cuda"):
     """Self-checking end-to-end run: (correct, timings, client, server)."""
     rng = rng or np.random.default_rng(seed)
     idx = int(rng.integers(0, params.total_n)) if idx is None else idx

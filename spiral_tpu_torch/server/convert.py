@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from spiral_tpu.params import Params
+from ..params import Params
 from ..arith import ntt
 from ..core.gadget import gadget_invert_raw
 from ..core.poly import add_raw, matmul_raw

@@ -18,12 +18,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from spiral_tpu.params import Params
+from ..params import Params
 from ..arith import ntt
 from ..arith.crt import residues_from_values
 
-# database items NTT'd per upload block of encode_db
-BLOCK_ITEMS = 8192
+# database polys NTT'd per upload block of encode_db and encode_pack_db
+BLOCK_POLYS = 32768
 
 
 @dataclasses.dataclass
@@ -60,7 +60,7 @@ def encode_db(pts: np.ndarray, params: Params, device) -> EncodedDb:
     perm = torch.from_numpy(bitrev_perm(num_per)).to(device)
     out = torch.empty((2, d, dim0 * n0, num_per * n2), dtype=torch.int32,
                       device=device)
-    jb = max(1, min(dim0, BLOCK_ITEMS // num_per))
+    jb = max(1, min(dim0, BLOCK_POLYS // (num_per * n0 * n2)))
     for j0 in range(0, dim0, jb):
         j1 = min(dim0, j0 + jb)
         block = pts[j0 * num_per:j1 * num_per]

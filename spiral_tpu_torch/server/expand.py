@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from spiral_tpu.params import Params
+from ..params import Params
 from .. import kernels
 from ..arith import ntt
 from ..core.gadget import gadget_invert_raw

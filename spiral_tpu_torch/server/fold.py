@@ -1,22 +1,27 @@
-"""GSW external-product folding (counterpart of spiral_tpu/server/fold.py).
+"""GSW external-product folding (counterpart of spiral_tpu/server/fold.py
+and of the pack fold in spiral_tpu/pack.py).
 
 Each round halves the ciphertexts with the homomorphic mux
-C <- q_neg . G^{-1}(C_even) + q_pos . G^{-1}(C_odd), with signed gadget
-digits.  Rows are in bit-reversed further-index order, so a round pairs
-adjacent cts (2o, 2o+1).
+C <- q_neg . G^{-1}(C_even) + q_pos . G^{-1}(C_odd).  Rows are in
+bit-reversed further-index order, so a round pairs adjacent cts (2o, 2o+1).
 
-On CUDA tensors a round is one launch of kernel K3 (csrc/fold.cu), which
-replaces the Pallas fold round (spiral_tpu/server/fold_pallas.py
-_fold_round_call, signed); on the CPU it runs ``fold_round_plain``.
+Spiral folds matrix cts with signed gadget digits: on CUDA tensors a round
+is one launch of kernel K3 (csrc/fold.cu), which replaces the Pallas fold
+round (spiral_tpu/server/fold_pallas.py _fold_round_call, signed); on the
+CPU it runs ``fold_round_plain``.  The pack variant folds scalar cts of
+out_n^2 trials with unsigned digits: kernel K6, the same CUDA kernel
+instantiated for two rows and unsigned digits, which replaces the same
+Pallas round called unsigned (fold_pack_rounds_fused); on the CPU
+``fold_pack_round_plain``.
 """
 from __future__ import annotations
 
 import torch
 
-from spiral_tpu.params import Params
+from ..params import Params
 from .. import kernels
 from ..arith import ntt
-from ..core.gadget import gadget_invert_signed_raw
+from ..core.gadget import gadget_invert_raw, gadget_invert_signed_raw
 from ..core.poly import add_raw, matmul_raw
 
 
@@ -72,3 +77,50 @@ def fold_ciphertexts(cts_coeff, q_pos, q_neg, params: Params,
     """Fold down to the single survivor (n1, n2, 2, d), coeff domain."""
     return fold_rounds(cts_coeff, q_pos, q_neg, params,
                        start_round=start_round)[0]
+
+
+def fold_pack_round_plain(cts: torch.Tensor, q_neg: torch.Tensor,
+                          q_pos: torch.Tensor, t_gsw: int) -> torch.Tensor:
+    """cts (T, 2m, 2, 1, 2, d) coeff; q_neg/q_pos (2, 2*t_gsw, 2, d) NTT ->
+    (T, m, 2, 1, 2, d) coeff.  Unsigned digits, row k*2 + j holding digit k
+    of ct row j (spiral_tpu/pack.py fold_pack_rounds)."""
+    g_even = ntt.forward_plain(gadget_invert_raw(cts[:, 0::2], 2 * t_gsw, 2))
+    g_odd = ntt.forward_plain(gadget_invert_raw(cts[:, 1::2], 2 * t_gsw, 2))
+    return ntt.inverse_plain(add_raw(matmul_raw(q_neg, g_even),
+                                     matmul_raw(q_pos, g_odd)))
+
+
+def fold_pack_round(cts: torch.Tensor, q_neg: torch.Tensor,
+                    q_pos: torch.Tensor, t_gsw: int) -> torch.Tensor:
+    if kernels.on_cpu(cts, q_neg, q_pos):
+        return fold_pack_round_plain(cts, q_neg, q_pos, t_gsw)
+    T, two_m, _, _, _, d = cts.shape
+    kernels.require(cts, (T, two_m, 2, 1, 2, d), "fold_pack cts")
+    kernels.require(q_neg, (2, 2 * t_gsw, 2, d), "fold_pack q_neg")
+    kernels.require(q_pos, (2, 2 * t_gsw, 2, d), "fold_pack q_pos")
+    if two_m % 2 or not 64 <= d <= 2048 or d & (d - 1) or \
+            not 2 <= t_gsw <= 56:
+        raise ValueError(f"fold_pack kernel takes an even ct count, "
+                         f"64 <= d <= 2048 and 2 <= t_gsw <= 56; got "
+                         f"{tuple(cts.shape)}, t_gsw {t_gsw}")
+    # pairs (2o, 2o+1) never cross a trial, so the trial axis flattens
+    # into the output-ct index
+    out = torch.empty((T, two_m // 2, 2, 1, 2, d), dtype=torch.int32,
+                      device=cts.device)
+    kernels.check(kernels.lib().spiral_fold_pack_round(
+        cts.data_ptr(), q_neg.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        ntt.kernel_table(d, cts.device).data_ptr(), T * two_m // 2, t_gsw,
+        d, kernels.stream()), "spiral_fold_pack_round")
+    kernels.LAUNCHES["fold_pack"] += 1
+    return out
+
+
+def fold_pack_rounds(cts_coeff: torch.Tensor, q_pos: torch.Tensor,
+                     q_neg: torch.Tensor, params: Params) -> torch.Tensor:
+    """cts_coeff (T, m, 2, 1, 2, d) coeff; q_pos/q_neg (nu_2, 2, 2*t_gsw,
+    2, d) NTT.  Folds each trial down to its survivor: (T, 1, 2, 1, 2, d)."""
+    for r in range(cts_coeff.shape[1].bit_length() - 1):
+        cts_coeff = fold_pack_round(cts_coeff.contiguous(),
+                                    q_neg[r].contiguous(),
+                                    q_pos[r].contiguous(), params.t_gsw)
+    return cts_coeff

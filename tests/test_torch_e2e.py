@@ -8,6 +8,7 @@ import pytest
 from spiral_tpu import pir as jpir
 from spiral_tpu.crypto.query import reconstruct_cts as j_reconstruct_cts
 from spiral_tpu.params import Params, preset
+from spiral_tpu_torch import params as tparams
 from spiral_tpu.server.db import encode_db as j_encode_db
 from spiral_tpu.server.db import random_db as j_random_db
 from spiral_tpu_torch import interop
@@ -19,13 +20,15 @@ from spiral_tpu_torch.server.db import encode_db, random_db
 
 # stopround > 0 (5 of g = 6), t_gsw = 9 (7-bit signed digits), m_exp_right
 # = 56 (one-bit digits), on a small ring
-STOP_CFG = Params(nu_1=5, nu_2=2, p_db=256, q_prime_bits=20, t_gsw=9,
-                  t_conv=4, t_exp=8, t_exp_right=56, poly_len=128)
+STOP_CFG = dict(nu_1=5, nu_2=2, p_db=256, q_prime_bits=20, t_gsw=9,
+                t_conv=4, t_exp=8, t_exp_right=56, poly_len=128)
 
 
 @pytest.mark.parametrize("cfg", ["tiny", "stopround"])
 def test_torch_server_answers_jax_client(cfg):
-    p = preset("tiny") if cfg == "tiny" else STOP_CFG
+    p = preset("tiny") if cfg == "tiny" else Params(**STOP_CFG)
+    tp = tparams.preset("tiny") if cfg == "tiny" else \
+        tparams.Params(**STOP_CFG)
     assert (p.stopround > 0) == (cfg == "stopround")
     client = jpir.SpiralClient(p, seed=7)
     pub = client.setup()
@@ -33,31 +36,30 @@ def test_torch_server_answers_jax_client(cfg):
     jdb = j_encode_db(pts, p)
     jserver = jpir.SpiralServer(p, jdb, pub)
     tserver = SpiralServer(
-        p, interop.encoded_db(np.asarray(jdb.data), p),
+        tp, interop.encoded_db(np.asarray(jdb.data), tp, "cpu"),
         interop.public_params([np.asarray(w.data) for w in pub.W_exp_left],
                               [np.asarray(w.data) for w in pub.W_exp_right],
                               np.asarray(pub.W_conv.data),
-                              np.asarray(pub.V.data)))
+                              np.asarray(pub.V.data), "cpu"))
     idx = p.total_n - 1
     q = client.query(idx)
     want, _ = jserver.process_query(q)
-    got, _ = tserver.process_query(interop.query(q.seed,
-                                                 np.asarray(q.packed_b)))
+    got, _ = tserver.process_query(interop.query(
+        q.seed, np.asarray(q.packed_b), "cpu"))
     for a, b in zip(interop.response_rows(got), interop.response_rows(want)):
         np.testing.assert_array_equal(a, b)
     keys = interop.secret_keys(np.asarray(client.keys.Sp.data),
                                np.asarray(client.keys.sr.data),
                                client.keys.Sp_centered,
-                               client.keys.sr_centered)
-    assert np.array_equal(decode_response(got, keys.Sp_centered, p),
+                               client.keys.sr_centered, "cpu")
+    assert np.array_equal(decode_response(got, keys.Sp_centered, tp),
                           pts[idx].astype(object))
 
 
 def test_jax_rebuilds_torch_client_query():
     """The JAX server's reconstruct_cts turns a torch-client query into the
     same ciphertext as the port's: the a halves come from one stream."""
-    p = preset("tiny")
-    q = SpiralClient(p, seed=5).query(3)
+    q = SpiralClient(tparams.preset("tiny"), seed=5, device="cpu").query(3)
     seed, packed_b = interop.query_to_numpy(q)
     want = j_reconstruct_cts(jnp.int32(seed), jnp.asarray(packed_b))
     np.testing.assert_array_equal(
@@ -66,17 +68,18 @@ def test_jax_rebuilds_torch_client_query():
 
 
 def test_torch_db_encoding_matches_jax(monkeypatch):
-    p = preset("tiny")
-    pts = random_db(p, np.random.default_rng(3))
+    p, tp = preset("tiny"), tparams.preset("tiny")
+    pts = random_db(tp, np.random.default_rng(3))
     np.testing.assert_array_equal(pts, j_random_db(p, np.random.default_rng(3)))
-    monkeypatch.setattr(torch_db, "BLOCK_ITEMS", 8)    # several blocks
-    got = interop.encoded_db_to_jax_layout(encode_db(pts, p, "cpu"))
+    monkeypatch.setattr(torch_db, "BLOCK_POLYS", 32)    # several blocks
+    got = interop.encoded_db_to_jax_layout(encode_db(pts, tp, "cpu"))
     np.testing.assert_array_equal(got, np.asarray(j_encode_db(pts, p).data))
 
 
 @pytest.mark.parametrize("nonoise", [True, False])
 def test_torch_client_and_server_decode(nonoise):
     for idx in (0, 15):
-        correct, timings, _, _ = run_pir(preset("tiny"), idx=idx, seed=4,
-                                         nonoise=nonoise)
+        correct, timings, _, _ = run_pir(tparams.preset("tiny"), idx=idx,
+                                         seed=4, nonoise=nonoise,
+                                         device="cpu")
         assert correct and timings.total_us > 0

@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K4 against their plain PyTorch versions on the card, bit
-for bit.  Every test is marked `gpu` and takes the `cuda` fixture, which
+"""CUDA kernels K1-K4, K6 and K7 against their plain PyTorch versions on
+the card, bit for bit.  Every test is marked `gpu` and takes the `cuda` fixture, which
 skips it on a machine without a CUDA device.  On the card (no jax there, so skip the suite's
 conftest, which imports it):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -7,10 +7,10 @@ conftest, which imports it):
 import pytest
 import torch
 
-from spiral_tpu.params import B_I, P_I
+from spiral_tpu_torch.params import B_I, P_I
 from spiral_tpu_torch import kernels
 from spiral_tpu_torch.arith import ntt
-from spiral_tpu_torch.server import expand, firstdim, fold
+from spiral_tpu_torch.server import expand, firstdim, fold, pack
 
 pytestmark = pytest.mark.gpu
 
@@ -68,3 +68,21 @@ def test_expand_kernel(cuda, m):
     W = _residues(cuda, (2, m, d))
     _same(expand.keyswitch(cv, ca, W, m),
           expand.keyswitch_plain(cv, ca, W, m), "expand")
+
+
+@pytest.mark.parametrize("t_gsw", [8, 9])
+def test_fold_pack_kernel(cuda, t_gsw):
+    d = 2048
+    cts = _residues(cuda, (4, 6, 2, 1, d))
+    qn, qp = (_residues(cuda, (2, 2 * t_gsw, d)) for _ in range(2))
+    _same(fold.fold_pack_round(cts, qn, qp, t_gsw),
+          fold.fold_pack_round_plain(cts, qn, qp, t_gsw), "fold_pack")
+
+
+@pytest.mark.parametrize("out_n, m_conv", [(2, 4), (4, 4), (4, 56)])
+def test_pack_kernel(cuda, out_n, m_conv):
+    d = 2048
+    cts = _residues(cuda, (out_n * out_n, 2, 1, d))
+    v_W = _residues(cuda, (out_n, out_n + 1, m_conv, d))
+    _same(pack.pack_ciphertexts(cts, v_W),
+          pack.pack_ciphertexts_plain(cts, v_W), "pack")

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from spiral_tpu.params import B_I, P_I, Params
+from spiral_tpu_torch import params as tparams
 from spiral_tpu.server import convert as jconvert
 from spiral_tpu.server import expand as jexpand
 from spiral_tpu.server import fold as jfold
@@ -23,7 +24,7 @@ def _residues(rng, shape):
 
 
 def _t(a):
-    return interop.to_torch(a)
+    return interop.to_torch(a, "cpu")
 
 
 def _eq(got, want):
@@ -31,21 +32,22 @@ def _eq(got, want):
 
 
 def _params(**kw):
+    """The same parameters for each package: (JAX Params, port Params)."""
     base = dict(nu_1=2, nu_2=2, p_db=256, t_gsw=8, t_conv=4, t_exp=8,
                 t_exp_right=56, poly_len=D)
     base.update(kw)
-    return Params(**base)
+    return Params(**base), tparams.Params(**base)
 
 
 def test_firstdim_matches_jax():
-    p = _params()
+    p, tp = _params()
     rng = np.random.default_rng(5)
     K = p.dim0 * p.n0
     data = _residues(rng, (p.num_per, p.n2, K, D))
     qk = _residues(rng, (K, p.n1, D))
     want = multiply_query_by_db(JEncodedDb(jnp.asarray(data), p),
                                 jnp.asarray(qk))
-    db = interop.encoded_db(data, p)
+    db = interop.encoded_db(data, tp, "cpu")
     res = firstdim.multiply_query_by_db(db.data, _t(qk))
     _eq(firstdim.finish_output(res, p.num_per, p.n2), want)
     np.testing.assert_array_equal(interop.encoded_db_to_jax_layout(db), data)
@@ -59,23 +61,23 @@ def test_reorient_query_matches_jax():
 
 @pytest.mark.parametrize("t_gsw", [8, 9])
 def test_fold_matches_jax(t_gsw):
-    p = _params(t_gsw=t_gsw)
+    p, tp = _params(t_gsw=t_gsw)
     rng = np.random.default_rng(t_gsw)
     cts = _residues(rng, (p.num_per, p.n1, p.n2, D))
     qp = _residues(rng, (p.nu_2, p.n1, p.m2, D))
     qn = _residues(rng, (p.nu_2, p.n1, p.m2, D))
     want = jfold.fold_rounds(jnp.asarray(cts), jnp.asarray(qp),
                              jnp.asarray(qn), p, fused=False)
-    _eq(fold.fold_rounds(_t(cts), _t(qp), _t(qn), p), want)
+    _eq(fold.fold_rounds(_t(cts), _t(qp), _t(qn), tp), want)
     # one round, then the rest from start_round = 1
-    half = fold.fold_rounds(_t(cts), _t(qp), _t(qn), p, 0, 1)
-    _eq(fold.fold_ciphertexts(half, _t(qp), _t(qn), p, start_round=1),
+    half = fold.fold_rounds(_t(cts), _t(qp), _t(qn), tp, 0, 1)
+    _eq(fold.fold_ciphertexts(half, _t(qp), _t(qn), tp, start_round=1),
         np.asarray(want)[0])
 
 
 @pytest.mark.parametrize("stopround", [0, 1])
 def test_expansion_matches_jax(stopround):
-    p = _params(t_gsw=2)
+    p, tp = _params(t_gsw=2)
     g = 3
     max_bits = p.t_gsw * p.further_dims if stopround else 0
     rng = np.random.default_rng(10 + stopround)
@@ -87,7 +89,7 @@ def test_expansion_matches_jax(stopround):
         [jnp.asarray(w) for w in Wr], p, max_bits_to_gen_right=max_bits,
         stopround=stopround, fused=False)
     got = expand.coefficient_expansion(
-        _t(cv0), g, [_t(w) for w in Wl], [_t(w) for w in Wr], p,
+        _t(cv0), g, [_t(w) for w in Wl], [_t(w) for w in Wr], tp,
         max_bits_to_gen_right=max_bits, stopround=stopround)
     _eq(got, want)
     _eq(expand.reorder_from_stopround(got, 3, 2),
@@ -95,15 +97,15 @@ def test_expansion_matches_jax(stopround):
 
 
 def test_conversion_matches_jax():
-    p = _params(t_gsw=3)
+    p, tp = _params(t_gsw=3)
     rng = np.random.default_rng(21)
     W = _residues(rng, (p.n1, p.n0 * p.m_conv, D))
     V = _residues(rng, (p.n1, 2 * p.m_conv, D))
     first = _residues(rng, (p.dim0, p.n0, 1, D))
     gsw = _residues(rng, (p.nu_2, p.t_gsw, p.n0, 1, D))
-    _eq(convert.scal_to_mat_batch(_t(first), _t(W), p),
+    _eq(convert.scal_to_mat_batch(_t(first), _t(W), tp),
         jconvert.scal_to_mat_batch(jnp.asarray(first), jnp.asarray(W), p))
-    _eq(convert.regev_to_gsw_batch(_t(gsw), _t(W), _t(V), p),
+    _eq(convert.regev_to_gsw_batch(_t(gsw), _t(W), _t(V), tp),
         jconvert.regev_to_gsw_batch(jnp.asarray(gsw), jnp.asarray(W),
                                     jnp.asarray(V), p))
 
@@ -111,9 +113,9 @@ def test_conversion_matches_jax():
 def test_modswitch_matches_jax():
     from spiral_tpu.crypto.decode import modswitch_device as j_modswitch
     from spiral_tpu_torch.crypto.decode import modswitch_device
-    p = _params()
+    p, tp = _params()
     final = _residues(np.random.default_rng(4), (p.n1, p.n2, D))
-    for got, want in zip(modswitch_device(_t(final), p),
+    for got, want in zip(modswitch_device(_t(final), tp),
                          j_modswitch(jnp.asarray(final), p)):
         _eq(got, want)
 
