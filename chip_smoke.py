@@ -3,25 +3,35 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each printing its own line:
+Phases, each printing its own lines and its wall time:
   1. the card: torch.cuda.is_available() (exit 1 without it) and
      nvidia-smi's name and power limit;
   2. build of the CUDA kernels from spiral_tpu_torch/csrc (one nvcc per
      source, in parallel): K1 ntt, K2 firstdim, K3 fold, K4 expand,
-     K6 fold_pack, K7 pack;
+     K5 fold_batch and fold_pack_batch, K6 fold_pack, K7 pack;
   3. each kernel against its plain PyTorch version on the card, for bit
      equality, with both times and the kernel's bound: K1-K4 at the
      spiral_20_256 shapes; K1, K2, K4, K6 and K7 at the spiralpack_20_256
-     shapes;
+     shapes; K5 (both forms) and K2 batched at B = 8 of both paths, K2
+     chunked at the spiral_24_256 slab, and K3, K4, K5 at spiral_24_256's
+     new digit widths;
   4. Spiral: a tiny flow on the card against the plain CPU flow (equal
      response rows), then end to end at spiral_20_256: a seeded client, a
      2^20 x 256 B database from a numpy seed encoded on the card, and
      three queries (index 0, total_n - 1 and a random one), each decoded
      against its record, with every kernel's launch count over that run;
+     then a batch of 8 (indices 0, total_n - 1 and six random ones) in
+     one process_query_batch, each answer decoded and equal to its
+     single-query rows;
   5. SpiralPack, the same at tiny_pack and spiralpack_20_256 (2^20 x 256 B
-     as 8,192 records of 4 x 4 polys), after the Spiral database is freed.
-The line before last is the kernels' JSON, the last line
-{"ok": true, "device": {...}}.  Any failure raises and exits nonzero.
+     as 8,192 records of 4 x 4 polys), after the Spiral database is freed;
+  6. the implicit huge-database mode at spiral_24_256 (2^24 x 256 B
+     served from a 2 GiB random slab streamed 32 times): one query and a
+     batch of 8 holding it, whose rows for it must equal the single run's
+     (the answers cannot decode: the slab is random).
+Each driven path counts launches from 0 and fails if a kernel of the path
+was never launched.  The line before last is the kernels' JSON, the last
+line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero.
 """
 from __future__ import annotations
 
@@ -59,9 +69,19 @@ KERNEL_META = {
                   "spiral_tpu/server/fold_pallas.py:378"),
     "pack": ("spiral_tpu_torch/csrc/pack.cu",
              "spiral_tpu/server/pack_pallas.py:94"),
+    "fold_batch": ("spiral_tpu_torch/csrc/fold.cu",
+                   "spiral_tpu/server/fold_pallas.py:512"),
+    "fold_pack_batch": ("spiral_tpu_torch/csrc/fold.cu",
+                        "spiral_tpu/server/fold_pallas.py:512"),
 }
 SPIRAL_PATH = ("ntt", "firstdim", "fold", "expand")
 PACK_PATH = ("ntt", "firstdim", "expand", "fold_pack", "pack")
+SPIRAL_BATCH_PATH = ("ntt", "firstdim", "expand", "fold_batch")
+PACK_BATCH_PATH = ("ntt", "firstdim", "expand", "fold_pack_batch", "pack")
+BATCH = 8
+# a kernel whose mean over back-to-back launches is below this is timed
+# again as the replay of a CUDA graph of those launches
+GRAPH_BELOW_MS = 0.1
 
 
 def card_line() -> str:
@@ -71,16 +91,38 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of fn() over reps launches, CUDA events, after one warm-up."""
-    fn()
+def _events_ms(run) -> float:
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end)
+
+
+def cuda_ms(fn, reps: int) -> tuple[float, str]:
+    """Mean ms of fn() over reps launches, CUDA events, after one warm-up,
+    and how it was timed.  Below GRAPH_BELOW_MS the back-to-back launches
+    may time the host's enqueue gaps, so the reps are captured in a CUDA
+    graph and its replay is timed instead ("graph")."""
+    def loop():
+        for _ in range(reps):
+            fn()      # each output is freed before the next launch
+
+    fn()
+    ms = _events_ms(loop) / reps
+    if ms >= GRAPH_BELOW_MS:
+        return ms, "events"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loop()
+    graph.replay()
+    return _events_ms(graph.replay) / reps, "graph"
 
 
 def rand_residues(gen, shape, limb_axis: int = -2):
@@ -217,28 +259,141 @@ def check_kernels(seed: int) -> dict:
                   on * 2 * on * (mc * (ntt_products(d) + (on + 1) * d) +
                                  ntt_products(d))))
 
+    cases += batch_cases(gen)
+
     results = {}
     for name, kernel, run, plain, reps, inputs, prods in cases:
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
+        del want
         nbytes = sum(t.numel() * 4 for t in inputs) + got.numel() * 4
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = prods / INT_PRODUCTS_PER_S * 1e3
-        rec = {"max_abs_err": err, "ms": cuda_ms(run, reps),
-               "plain_ms": cuda_ms(plain, 1),
+        ms, timed_by = cuda_ms(run, reps)
+        rec = {"max_abs_err": err, "ms": ms, "timed_by": timed_by,
+               "plain_ms": cuda_ms(plain, 1)[0],
                "bound_ms": max(mem_ms, ops_ms),
                "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
                "bytes": nbytes, "products": prods,
                "shape": list(got.shape)}
         print(f"check {name}: max_abs_err={err} (tolerance 0) kernel "
-              f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, "
-              f"{prods} products) out {tuple(got.shape)}", flush=True)
+              f"{rec['ms']:.4f} ms ({timed_by}) plain {rec['plain_ms']:.4f} "
+              f"ms bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+              f"{nbytes} B, {prods} products) out {tuple(got.shape)}",
+              flush=True)
         if err:
             raise SystemExit(f"{name}: kernel differs from its plain version")
         results.setdefault(kernel, {})[name] = rec
+        del got
+        torch.cuda.empty_cache()
     return results
+
+
+def batch_cases(gen) -> list:
+    """Phase 3 cases of the batch and implicit paths: K5 at round 1 (and
+    the last round) of both forms at B = 8, K2 over B = 8 queries at both
+    paths' shapes and chunked over the spiral_24_256 slab, K1 on a batch's
+    first-dim output, K7 over a batch, and spiral_24_256's new widths (K3
+    and K5 at t_gsw 11, K4 at m 16)."""
+    from spiral_tpu_torch.arith import ntt
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.server import expand, firstdim, fold, pack
+    from spiral_tpu_torch.server.db import slab_rows
+
+    cases = []
+    sp, pp, big = (preset(n) for n in ("spiral_20_256", "spiralpack_20_256",
+                                       "spiral_24_256"))
+    d, n1, n2 = sp.poly_len, sp.n1, sp.n2
+    B, T = BATCH, pp.out_n ** 2
+
+    def fold_case(tag, t, m_out, per_q_shape):
+        """K5 Spiral (per_q_shape None) or pack round with m_out outputs
+        per query."""
+        if per_q_shape is None:
+            cts = rand_residues(gen, (B, 2 * m_out, n1, n2, d))
+            qn, qp = (rand_residues(gen, (B, n1, t * n1, d))
+                      for _ in range(2))
+            return (f"fold_batch_{tag}", "fold_batch",
+                    lambda: fold.fold_round_batch(cts, qn, qp, t),
+                    lambda: fold.fold_round_plain(cts, qn, qp, t), 5,
+                    [cts, qn, qp], B * fold_products(m_out, n1, n2, t, d))
+        cts = rand_residues(gen, (B,) + per_q_shape + (2, 1, d))
+        qn, qp = (rand_residues(gen, (B, 2, 2 * t, d)) for _ in range(2))
+        return (f"fold_pack_batch_{tag}", "fold_pack_batch",
+                lambda: fold.fold_pack_round_batch(cts, qn, qp, t),
+                lambda: fold.fold_pack_round_plain(cts, qn, qp, t), 5,
+                [cts, qn, qp], B * fold_products(m_out, 2, 1, t, d))
+
+    # K5, round 1 of both forms, both digit widths; the last Spiral round
+    for name in ("spiral_20_256", "spiral_20_256_paper"):
+        t = preset(name).t_gsw
+        cases.append(fold_case(f"t{t}", t, sp.num_per // 2, None))
+    cases.append(fold_case(f"t{sp.t_gsw}_last", sp.t_gsw, 1, None))
+    for name in ("spiralpack_20_256", "spiralpack_20_256_paper"):
+        t = preset(name).t_gsw
+        cases.append(fold_case(f"t{t}", t, T * pp.num_per // 2,
+                               (T, pp.num_per)))
+    # K2 over B queries: G = 24 rows (Spiral) and 16 (pack)
+    for tag, K, m, rows in (("spiral", sp.dim0 * sp.n0, sp.num_per * n2, n1),
+                            ("pack", pp.dim0, T * pp.num_per, 2)):
+        db = rand_residues(gen, (d, K, m), 0)
+        qk = rand_residues(gen, (B, K, rows, d))
+        cases.append((f"firstdim_batch_{tag}", "firstdim",
+                      lambda db=db, qk=qk: firstdim.multiply_query_by_db_batch(
+                          db, qk),
+                      lambda db=db, qk=qk: firstdim.multiply_batch_plain(
+                          db, qk), 5, [db, qk], 2 * d * K * m * B * rows))
+        del db
+    # K2 chunked over the spiral_24_256 slab (64 rows x n2, 2 GiB), two
+    # chunks, one query and B; the run streams it num_chunks times
+    K24 = big.dim0 * big.n0
+    m24 = slab_rows(big.num_per, n2 * K24 * 2 * d * 4, 2 << 30) * n2
+    slab = rand_residues(gen, (d, K24, m24), 0)
+    for qb in (1, B):
+        qk = rand_residues(gen, (qb, K24, n1, d))
+        cases.append((f"firstdim_implicit_b{qb}_2chunks", "firstdim",
+                      lambda qk=qk: firstdim.multiply_query_by_db_batch(
+                          slab, qk, 2),
+                      lambda qk=qk: firstdim.multiply_batch_plain(
+                          slab, qk, 2), 5, [slab, qk],
+                      2 * 2 * d * K24 * m24 * qb * n1))
+    # K1 on the first-dim output of a Spiral batch
+    x = rand_residues(gen, (B * sp.num_per * n1 * n2, d))
+    cases.append(("ntt_inverse_batch", "ntt", lambda: ntt.inverse(x),
+                  lambda: ntt.inverse_plain(x), 20, [x],
+                  x.numel() // d * ntt_products(d)))
+    # K7 over a batch of pack results
+    on, mc = pp.out_n, pp.m_conv
+    rcts = rand_residues(gen, (B, T, 2, 1, d))
+    v_W = rand_residues(gen, (on, on + 1, mc, d))
+    cases.append((f"pack_batch_n{on}_m{mc}", "pack",
+                  lambda: pack.pack_ciphertexts(rcts, v_W),
+                  lambda: pack.pack_ciphertexts_plain(rcts, v_W), 20,
+                  [rcts, v_W],
+                  B * on * 2 * on * (mc * (ntt_products(d) + (on + 1) * d) +
+                                     ntt_products(d))))
+    # spiral_24_256: K3 at t_gsw 11 (6-bit digits), its round 1; K5 at t 11
+    # at round 5 of a batch (64 outputs per query); K4 at m 16, its largest
+    # left round
+    t = big.t_gsw
+    cts = rand_residues(gen, (big.num_per, n1, n2, d))
+    qn, qp = (rand_residues(gen, (n1, t * n1, d)) for _ in range(2))
+    cases.append((f"fold_t{t}", "fold",
+                  lambda: fold.fold_round(cts, qn, qp, t),
+                  lambda: fold.fold_round_plain(cts, qn, qp, t), 5,
+                  [cts, qn, qp], fold_products(big.num_per // 2, n1, n2, t,
+                                               d)))
+    cases.append(fold_case(f"t{t}_round5", t, 64, None))
+    mk, N = big.m_exp, 1 << (big.g - 1)
+    cv, ca = (rand_residues(gen, (N, 2, 1, d)) for _ in range(2))
+    W = rand_residues(gen, (2, mk, d))
+    cases.append((f"expand_m{mk}", "expand",
+                  lambda: expand.keyswitch(cv, ca, W, mk),
+                  lambda: expand.keyswitch_plain(cv, ca, W, mk), 5,
+                  [cv, ca, W],
+                  N * 2 * (mk * (ntt_products(d) + 2 * d) + ntt_products(d))))
+    return cases
 
 
 def _variant(pack: bool):
@@ -277,13 +432,38 @@ def check_tiny(name: str, seed: int, pack: bool) -> None:
         raise SystemExit(f"{name}: cuda and cpu responses differ")
 
 
-def run_path(name: str, seed: int, card: str, pack: bool,
-             path: tuple) -> tuple[dict, dict]:
+def same_rows(a, b) -> bool:
+    from spiral_tpu_torch import interop
+    return all(np.array_equal(x, y) for x, y in
+               zip(interop.response_rows(a), interop.response_rows(b)))
+
+
+def report_batch(tag: str, server, n: int, seconds: float, db_bytes: int,
+                 launches: dict, path: tuple, card: str) -> None:
+    """Print a batch's time, rate, stage times and launches; fail if a
+    kernel of `path` was never launched."""
+    tm = server.last_batch_timings
+    stages = {k: round(v, 1) for k, v in vars(tm).items()}
+    print(f"{tag}: B={n} batch {seconds * 1e3:.3f} ms (host clock, until "
+          f"the rows are on the host) = {seconds * 1e3 / n:.3f} ms per "
+          f"query, aggregate {n * db_bytes / seconds / 1e6:.1f} MB/s; "
+          f"stages by cuda events {tm.total_us / 1e3:.3f} ms "
+          f"stages_us={stages} launches per batch={launches} [{card}]",
+          flush=True)
+    if not all(launches[k] for k in path):
+        raise SystemExit(f"{tag}: a kernel of the path was never launched")
+
+
+def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
+             batch_path: tuple) -> tuple[dict, dict, dict]:
     """End to end at a full-size preset on the card: a database from numpy
     seed `seed`, a seeded client and three queries, each decoded against
-    its record.  Returns the launch counts over the run (database encode
-    and client setup included), which must be nonzero for every kernel of
-    `path`, and those of the last query alone."""
+    its record; then a batch of BATCH queries (indices 0, total_n - 1 and
+    random ones), each decoded and equal to its single-query rows.
+    Returns the launch counts over the single run (database encode and
+    client setup included), which must be nonzero for every kernel of
+    `path`, those of the last query alone, and those of the batch, which
+    must be nonzero for every kernel of `batch_path`."""
     from spiral_tpu_torch import kernels
     from spiral_tpu_torch.params import preset
 
@@ -335,7 +515,89 @@ def run_path(name: str, seed: int, card: str, pack: bool,
     print(f"{name} first-dim stage streams {db.data.numel() * 4 / 2**30:.2f} "
           f"GiB of encoded db in {fd_ms:.3f} ms (incl. inverse NTT): "
           f"{db.data.numel() * 4 / fd_ms / 1e9:.3f} TB/s of 3.35", flush=True)
-    return launches, per_query
+
+    bidx = [0, params.total_n - 1] + [
+        int(i) for i in rng.integers(0, params.total_n, BATCH - 2)]
+    qs = [client.query(i) for i in bidx]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    resps, seconds = server.process_query_batch(qs)
+    batch = dict(kernels.LAUNCHES)
+    report_batch(f"{name} batch", server, len(qs), seconds, db_bytes, batch,
+                 batch_path, card)
+    for idx, q, r in zip(bidx, qs, resps):
+        ok = np.array_equal(client.decode(r), pts[idx].astype(object))
+        same = same_rows(r, server.process_query(q)[0])
+        if not (ok and same):
+            raise SystemExit(f"{name} batch idx={idx}: decodes={ok}, rows "
+                             f"equal to its single query's={same}")
+    print(f"{name} batch: all {len(qs)} answers decode to their records "
+          f"and equal their single-query rows (indices {bidx})", flush=True)
+    return launches, per_query, batch
+
+
+def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
+    """The implicit huge-database mode at a full-size preset: a random slab
+    of at most 2 GiB streamed num_chunks times, one query, then a batch of
+    BATCH queries that holds it; the batch's rows for that query must equal
+    the single run's.  Returns the launch counts of the single query and
+    of the batch."""
+    from spiral_tpu_torch import kernels
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.pir import SpiralClient, SpiralServer
+    from spiral_tpu_torch.server.db import random_implicit_db
+
+    params = preset(name)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    db = random_implicit_db(params, rng, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    client = SpiralClient(params, seed=seed, device="cuda")
+    server = SpiralServer(params, db, client.setup())
+    torch.cuda.synchronize()
+    slab_bytes = db.slab.numel() * 4
+    streamed = db.num_chunks * slab_bytes
+    db_bytes = params.total_n * params.n0 * params.n2 * params.poly_len * \
+        int(np.log2(params.p_db)) // 8
+    print(f"{name} implicit setup: slab {slab_bytes / 2**30:.2f} GiB "
+          f"({db.slab_per} of {params.num_per} rows, {db.num_chunks} "
+          f"chunks) in {t1 - t0:.2f} s, client keys+public params "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+
+    bidx = [int(i) for i in rng.integers(0, params.total_n, BATCH - 2)]
+    bidx = bidx[:1] + [0, params.total_n - 1] + bidx[1:]
+    qs = [client.query(i) for i in bidx]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    resp, tm = server.process_query(qs[0])
+    single = dict(kernels.LAUNCHES)
+    stages = {k: round(v, 1) for k, v in vars(tm).items()}
+    print(f"{name} implicit query idx={bidx[0]}: server "
+          f"{tm.total_us / 1e3:.3f} ms (cuda events) "
+          f"{db_bytes / tm.total_us:.1f} MB/s stages_us={stages} "
+          f"launches={single} [{card}]", flush=True)
+    if not all(single[k] for k in SPIRAL_PATH):
+        raise SystemExit(f"{name} implicit: a kernel of the path was never "
+                         f"launched")
+    kernels.reset_launches()
+    resps, seconds = server.process_query_batch(qs)
+    batch = dict(kernels.LAUNCHES)
+    report_batch(f"{name} implicit batch", server, len(qs), seconds,
+                 db_bytes, batch, SPIRAL_BATCH_PATH, card)
+    for tag, t in (("query", tm), ("batch", server.last_batch_timings)):
+        print(f"{name} implicit {tag}: first-dim stage streams "
+              f"{streamed / 2**30:.1f} GiB ({db.num_chunks} x "
+              f"{slab_bytes / 2**30:.2f} GiB slab) in "
+              f"{t.first_multiply_us / 1e3:.3f} ms (incl. inverse NTT): "
+              f"{streamed / t.first_multiply_us / 1e6:.3f} TB/s of 3.35",
+              flush=True)
+    if not same_rows(resps[0], resp):
+        raise SystemExit(f"{name} implicit: the batch's rows for idx "
+                         f"{bidx[0]} differ from its single run's")
+    print(f"{name} implicit: the batch's rows for idx={bidx[0]} equal the "
+          f"single run's", flush=True)
+    return single, batch
 
 
 def main() -> int:
@@ -353,6 +615,11 @@ def main() -> int:
           f"{torch.version.cuda}; devices {torch.cuda.device_count()}",
           flush=True)
 
+    def phase(label, t0):
+        print(f"phase {label}: {time.perf_counter() - t0:.2f} s wall",
+              flush=True)
+        return time.perf_counter()
+
     t0 = time.perf_counter()
     kernels.lib(verbose=True)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, "
@@ -361,35 +628,49 @@ def main() -> int:
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
+    t0 = phase("2 build", t0)
 
     checks = check_kernels(args.seed)
+    gc.collect()
     torch.cuda.empty_cache()
+    t0 = phase("3 kernel checks", t0)
+    paths, per_query = {}, {}
     check_tiny("tiny", args.seed, pack=False)
-    spiral, spiral_q = run_path("spiral_20_256", args.seed, card, False,
-                                SPIRAL_PATH)
+    name = "spiral_20_256"
+    paths[name], per_query[name], paths[f"{name} batch"] = run_path(
+        name, args.seed, card, False, SPIRAL_PATH, SPIRAL_BATCH_PATH)
     gc.collect()
     torch.cuda.empty_cache()      # the Spiral database is freed here
+    t0 = phase("4 spiral", t0)
     check_tiny("tiny_pack", args.seed, pack=True)
-    packed, packed_q = run_path("spiralpack_20_256", args.seed, card, True,
-                                PACK_PATH)
+    name = "spiralpack_20_256"
+    paths[name], per_query[name], paths[f"{name} batch"] = run_path(
+        name, args.seed, card, True, PACK_PATH, PACK_BATCH_PATH)
+    gc.collect()
+    torch.cuda.empty_cache()      # the pack database is freed here
+    t0 = phase("5 pack", t0)
+    name = "spiral_24_256"
+    paths[f"{name} implicit"], paths[f"{name} implicit batch"] = \
+        run_implicit(name, args.seed, card)
+    t0 = phase("6 implicit", t0)
 
     out = []
     for kernel, (src, repl) in KERNEL_META.items():
         recs = checks[kernel]
         main_case = next(iter(recs.values()))
+        by_path = {k: v[kernel] for k, v in paths.items()}
         out.append({
             "name": kernel, "route": "cuda", "source": src, "replaces": repl,
-            # the launches of the two driven runs (each counted from 0);
+            # the launches of the driven runs, each counted from 0;
             # launches_by_path and launches_per_query split it
-            "launches": spiral[kernel] + packed[kernel],
+            "launches": sum(by_path.values()),
             "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": None,
-            "launches_by_path": {"spiral_20_256": spiral[kernel],
-                                 "spiralpack_20_256": packed[kernel]},
-            "launches_per_query": {"spiral_20_256": spiral_q[kernel],
-                                   "spiralpack_20_256": packed_q[kernel]},
+            "launches_by_path": by_path,
+            "launches_per_query": {k: v[kernel]
+                                   for k, v in per_query.items()},
             "cases": recs})
     print(json.dumps({"kernels": out}))
     print(card)

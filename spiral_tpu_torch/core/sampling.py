@@ -46,10 +46,11 @@ def uniform_residues(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.stack([x, y], dim=-2).to(torch.int32)
 
 
-def uniform_residues_jax(key: tuple[int, int], shape, device) -> torch.Tensor:
-    """spiral_tpu.core.sampling.uniform_residues(jax key, shape), bit for
-    bit: (..., d) -> (..., 2, d) int32."""
-    kp, kb = threefry.split(key)
-    x = threefry.randint_u32(kp, shape, P_I, device)
-    y = threefry.randint_u32(kb, shape, B_I, device)
+def uniform_residues_jax(keys: list[tuple[int, int]], shape,
+                         device) -> torch.Tensor:
+    """spiral_tpu.core.sampling.uniform_residues(jax key, shape) for each
+    key, bit for bit: (..., d) -> (len(keys), ..., 2, d) int32."""
+    halves = [threefry.split(k) for k in keys]
+    x = threefry.randint_u32([h[0] for h in halves], shape, P_I, device)
+    y = threefry.randint_u32([h[1] for h in halves], shape, B_I, device)
     return torch.stack([x, y], dim=-2).to(torch.int32)

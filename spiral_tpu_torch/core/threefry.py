@@ -5,6 +5,8 @@ _threefry_split_foldlike, _threefry_random_bits_partitionable;
 jax/_src/random.py _randint).
 
 Words are uint32 values held in int64 tensors; keys are python int pairs.
+The samplers take a list of keys and draw each key's stream in one row, so
+a batch of queries replays in one pass.
 """
 from __future__ import annotations
 
@@ -43,28 +45,30 @@ def key_from_seed(seed: int) -> tuple[int, int]:
 
 
 def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
-    lo = torch.arange(num, dtype=torch.int64)
-    b0, b1 = threefry2x32(key, torch.zeros_like(lo), lo)
-    return [(int(u), int(v)) for u, v in zip(b0.tolist(), b1.tolist())]
+    return [threefry2x32(key, 0, i) for i in range(num)]
 
 
-def random_bits(key: tuple[int, int], shape, device) -> torch.Tensor:
-    """32-bit random words over `shape` (int64 tensor)."""
+def random_bits(keys: list[tuple[int, int]], shape, device) -> torch.Tensor:
+    """32-bit random words over `shape` for each key: (len(keys), *shape)
+    int64, one key's stream per row."""
     n = math.prod(shape)
     assert n < (1 << 32)
+    k0, k1 = (torch.tensor([k[j] for k in keys], dtype=torch.int64,
+                           device=device)[:, None] for j in (0, 1))
     lo = torch.arange(n, dtype=torch.int64, device=device)
-    b0, b1 = threefry2x32(key, torch.zeros_like(lo), lo)
-    return (b0 ^ b1).reshape(shape)
+    b0, b1 = threefry2x32((k0, k1), torch.zeros_like(lo), lo)
+    return (b0 ^ b1).reshape((len(keys),) + tuple(shape))
 
 
-def randint_u32(key: tuple[int, int], shape, maxval: int, device):
-    """jax.random.randint(key, shape, 0, maxval, dtype=uint32), with
-    its uint32 wrap-around in the range reduction."""
+def randint_u32(keys: list[tuple[int, int]], shape, maxval: int, device):
+    """jax.random.randint(key, shape, 0, maxval, dtype=uint32) for each
+    key, (len(keys), *shape), with its uint32 wrap-around in the range
+    reduction."""
     span = maxval
     assert 0 < span <= M32
-    k1, k2 = split(key)
-    hi = random_bits(k1, shape, device)
-    lo = random_bits(k2, shape, device)
+    halves = [split(k) for k in keys]
+    hi = random_bits([h[0] for h in halves], shape, device)
+    lo = random_bits([h[1] for h in halves], shape, device)
     mult = (1 << 16) % span
     mult = (mult * mult & M32) % span
     off = ((hi % span) * mult & M32) + lo % span

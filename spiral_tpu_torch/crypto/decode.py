@@ -22,18 +22,27 @@ class Response:
 
 
 def modswitch_device(final: torch.Tensor, params: Params):
-    """final (rows, cols, 2, d) residues -> (row 0 rescaled to q', rows 1..
-    rescaled to 4p) int32 tensors."""
-    first = rescale_residues_device(final[:1, :, 0], final[:1, :, 1],
+    """final (..., rows, cols, 2, d) residues -> (row 0 rescaled to q',
+    rows 1.. rescaled to 4p) int32 tensors (..., 1, cols, d) and
+    (..., rows-1, cols, d); a leading query axis as jax.vmap gives it."""
+    first = rescale_residues_device(final[..., :1, :, 0, :],
+                                    final[..., :1, :, 1, :],
                                     params.arb_qprime)
-    rest = rescale_residues_device(final[1:, :, 0], final[1:, :, 1],
-                                   4 * params.p_db)
+    rest = rescale_residues_device(final[..., 1:, :, 0, :],
+                                   final[..., 1:, :, 1, :], 4 * params.p_db)
     return first, rest
 
 
 def response_from_device_rows(first, rest) -> Response:
     return Response(first_row=first.cpu().numpy().astype(object),
                     rest_rows=rest.cpu().numpy().astype(object))
+
+
+def responses_from_device_rows(first_b, rest_b) -> list[Response]:
+    """A batch's rows (B, 1, cols, d) and (B, rows-1, cols, d): one copy to
+    the host, then one Response per query."""
+    first_b, rest_b = first_b.cpu(), rest_b.cpu()
+    return [response_from_device_rows(f, r) for f, r in zip(first_b, rest_b)]
 
 
 def negacyclic_conv_small(a_small: np.ndarray, b: np.ndarray, q: int

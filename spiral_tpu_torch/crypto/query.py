@@ -25,18 +25,29 @@ class Query:
     size_bytes: int = 0
 
 
+def derive_a_ntt_batch(seeds, n_cts: int, d: int, device) -> torch.Tensor:
+    """The PRF-derived uniform a halves of each seed's query, NTT domain
+    (B, n_cts, 1, 1, 2, d): jax.random.key(seed) -> uniform_residues ->
+    NTT, bit for bit, all seeds in one pass."""
+    keys = [key_from_seed(int(s)) for s in seeds]
+    return ntt.forward(uniform_residues_jax(keys, (n_cts, 1, 1, d), device))
+
+
 def derive_a_ntt(seed: int, n_cts: int, d: int, device) -> torch.Tensor:
-    """The PRF-derived uniform a halves, NTT domain (n_cts, 1, 1, 2, d):
-    jax.random.key(seed) -> uniform_residues -> NTT, bit for bit."""
-    a = uniform_residues_jax(key_from_seed(seed), (n_cts, 1, 1, d), device)
-    return ntt.forward(a)
+    """One seed's a halves (n_cts, 1, 1, 2, d)."""
+    return derive_a_ntt_batch([seed], n_cts, d, device)[0]
 
 
-def reconstruct_cts(seed: int, b_ntt: torch.Tensor) -> torch.Tensor:
+def reconstruct_cts(seed, b_ntt: torch.Tensor) -> torch.Tensor:
     """(-a, b) scalar cts from the seed and b rows: (n, 1, 1, 2, d) ->
-    (n, 2, 1, 2, d)."""
-    a = derive_a_ntt(seed, b_ntt.shape[0], b_ntt.shape[-1], b_ntt.device)
-    return torch.cat([neg_raw(a), b_ntt], dim=-4)
+    (n, 2, 1, 2, d).  For a list of B seeds, one query each:
+    (B, n, 1, 1, 2, d) -> (B, n, 2, 1, 2, d)."""
+    single = isinstance(seed, (int, np.integer))
+    b = b_ntt[None] if single else b_ntt
+    a = derive_a_ntt_batch([seed] if single else seed, b.shape[1],
+                           b.shape[-1], b.device)
+    out = torch.cat([neg_raw(a), b], dim=-4)
+    return out[0] if single else out
 
 
 def sigma_poly(params: Params, idx: int, g: int, stop: int) -> np.ndarray:

@@ -1,4 +1,5 @@
-// K3 and K6: one GSW fold round, signed (Spiral) or unsigned (pack).
+// K3, K5 and K6: one GSW fold round, signed (Spiral) or unsigned (pack),
+// for one query or for a batch of B queries.
 //
 // For output ct o, column col and CRT limb li:
 //   out[o, r, col] = INTT( sum_kk q_neg[r, kk] * NTT(G^-1(cts[2o]))[kk, col]
@@ -13,7 +14,13 @@
 //     a trial); G^-1 is the unsigned digits (lift >> k*bits) & mask
 //     (gadget_invert_impl), reduced mod p.
 // Both digit widths of the presets run here: 7-bit at t_gsw = 9 and 8-bit
-// at t_gsw = 8.
+// at t_gsw = 8 (and 6-bit at t_gsw = 11, spiral_24_256).
+//   K5 is either form over B queries in one launch: the output cts of all
+//     queries flatten into o, output ct o belongs to query o / m_per_q and
+//     reads that query's q block (B, N1, m2, 2, d), as the Pallas batched
+//     round's `i // spq` index map does (spiral_tpu/server/fold_pallas.py
+//     _fold_round_call_batch).  A pair (2o, 2o+1) never crosses a query.
+//     K3 and K6 are the same kernel with m_per_q = m_out (one q block).
 //
 // Replaces the Pallas fold kernel spiral_tpu/server/fold_pallas.py
 // _fold_round_call (kernel _make_fold_kernel; signed=True for Spiral,
@@ -32,7 +39,8 @@
 // d = 2048 per block (57 for K3 at t_gsw 9, 38 for K6), each 11
 // __syncthreads() stages; the q reads are gathers from L2.  Latency and
 // integer issue bound; the later rounds run few blocks (K6's last round:
-// out_n^2 * 2 blocks).
+// out_n^2 * 2 blocks).  K5 runs B times as many blocks in one launch, so
+// its later rounds leave fewer SMs idle.
 #include "ntt.cuh"
 
 using namespace spiral;
@@ -44,12 +52,13 @@ fold_round_kernel(const uint32_t* __restrict__ cts,
                   const uint32_t* __restrict__ q_pos,
                   uint32_t* __restrict__ out,
                   const uint32_t* __restrict__ tab, int n2, int t_gsw, int d,
-                  int logd) {
+                  int logd, int m_per_q) {
   extern __shared__ uint32_t a[];
   const int o = blockIdx.x, col = blockIdx.y, li = blockIdx.z;
   const Mod md = mod_of(li);
   const int half = d >> 1, tid = threadIdx.x;
   const int m2 = t_gsw * N1;
+  const size_t q_off = (size_t)(o / m_per_q) * N1 * m2 * 2 * d;
   const int bits = bits_per(t_gsw);
   const uint64_t mask = (1ull << bits) - 1;   // t_gsw >= 2: bits <= 29
   const uint32_t half_z = 1u << (bits - 1);
@@ -61,7 +70,7 @@ fold_round_kernel(const uint32_t* __restrict__ cts,
 
   uint64_t acc[N1][2] = {};
   for (int src = 0; src < 2; ++src) {
-    const uint32_t* q = src ? q_pos : q_neg;
+    const uint32_t* q = (src ? q_pos : q_neg) + q_off;
     for (int j = 0; j < N1; ++j) {
       const uint32_t* c =
           cts + (((size_t)(2 * o + src) * N1 + j) * n2 + col) * 2 * d;
@@ -122,15 +131,16 @@ fold_round_kernel(const uint32_t* __restrict__ cts,
 
 template <int N1, bool SIGNED>
 static int launch_fold(const void* cts, const void* q_neg, const void* q_pos,
-                       void* out, const void* tab, int m_out, int n2,
+                       void* out, const void* tab, int B, int m_out, int n2,
                        int t_gsw, int d, void* stream) {
-  if (d < 64 || d > 2048 || t_gsw < 2 || t_gsw > 56)
+  if (d < 64 || d > 2048 || t_gsw < 2 || t_gsw > 56 || B < 1 || m_out < 1)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(m_out, n2, 2);
+  dim3 grid(B * m_out, n2, 2);
   fold_round_kernel<N1, SIGNED><<<grid, d / 2, d * sizeof(uint32_t),
                                   (cudaStream_t)stream>>>(
       (const uint32_t*)cts, (const uint32_t*)q_neg, (const uint32_t*)q_pos,
-      (uint32_t*)out, (const uint32_t*)tab, n2, t_gsw, d, log2_exact(d));
+      (uint32_t*)out, (const uint32_t*)tab, n2, t_gsw, d, log2_exact(d),
+      m_out);
   return (int)cudaGetLastError();
 }
 
@@ -140,8 +150,8 @@ extern "C" int spiral_fold_round(const void* cts, const void* q_neg,
                                  const void* tab, int m_out, int n1, int n2,
                                  int t_gsw, int d, void* stream) {
   if (n1 != 3) return (int)cudaErrorInvalidValue;
-  return launch_fold<3, true>(cts, q_neg, q_pos, out, tab, m_out, n2, t_gsw,
-                              d, stream);
+  return launch_fold<3, true>(cts, q_neg, q_pos, out, tab, 1, m_out, n2,
+                              t_gsw, d, stream);
 }
 
 // K6: cts (2*m_out, 2, 1, 2, d) -> out (m_out, 2, 1, 2, d), m_out summed
@@ -150,6 +160,31 @@ extern "C" int spiral_fold_pack_round(const void* cts, const void* q_neg,
                                       const void* q_pos, void* out,
                                       const void* tab, int m_out, int t_gsw,
                                       int d, void* stream) {
-  return launch_fold<2, false>(cts, q_neg, q_pos, out, tab, m_out, 1, t_gsw,
-                               d, stream);
+  return launch_fold<2, false>(cts, q_neg, q_pos, out, tab, 1, m_out, 1,
+                               t_gsw, d, stream);
+}
+
+// K5, Spiral form: cts (B, 2*m_out, 3, n2, 2, d), q_neg/q_pos
+// (B, 3, 3*t_gsw, 2, d) -> out (B, m_out, 3, n2, 2, d).
+extern "C" int spiral_fold_round_batch(const void* cts, const void* q_neg,
+                                       const void* q_pos, void* out,
+                                       const void* tab, int B, int m_out,
+                                       int n1, int n2, int t_gsw, int d,
+                                       void* stream) {
+  if (n1 != 3) return (int)cudaErrorInvalidValue;
+  return launch_fold<3, true>(cts, q_neg, q_pos, out, tab, B, m_out, n2,
+                              t_gsw, d, stream);
+}
+
+// K5, pack form: cts (B, T, 2*m, 2, 1, 2, d), q_neg/q_pos
+// (B, 2, 2*t_gsw, 2, d) -> out (B, T, m, 2, 1, 2, d), with m_out = T*m the
+// outputs of one query.
+extern "C" int spiral_fold_pack_round_batch(const void* cts,
+                                            const void* q_neg,
+                                            const void* q_pos, void* out,
+                                            const void* tab, int B,
+                                            int m_out, int t_gsw, int d,
+                                            void* stream) {
+  return launch_fold<2, false>(cts, q_neg, q_pos, out, tab, B, m_out, 1,
+                               t_gsw, d, stream);
 }

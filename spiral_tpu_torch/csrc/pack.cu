@@ -1,5 +1,5 @@
 // K7: packing the out_n^2 scalar result cts into one (out_n+1) x out_n
-// matrix ct.
+// matrix ct, for one query or, one block row per query, a batch of B.
 //
 // For output column c and CRT limb li, with ct_(r,c) the coefficient-domain
 // result ct of trial r*out_n + c and v_W (out_n, out_n+1, m_conv) the
@@ -21,9 +21,10 @@
 // out_n 2, 4 and 8 (a template argument, so the accumulators stay in
 // registers), m_conv up to 56.
 //
-// Bound on the H100: it runs only 2*out_n blocks on 132 SMs, each a chain
-// of out_n*(m_conv + 1) NTTs of 11 __syncthreads() stages: latency bound,
-// far from both the integer and the memory rate.
+// Bound on the H100: it runs only 2*out_n blocks per query on 132 SMs
+// (2*out_n*B for a batch), each a chain of out_n*(m_conv + 1) NTTs of 11
+// __syncthreads() stages: latency bound, far from both the integer and the
+// memory rate.
 #include "ntt.cuh"
 
 using namespace spiral;
@@ -35,6 +36,8 @@ pack_kernel(const uint32_t* __restrict__ cts,
             const uint32_t* __restrict__ tab, int m_conv, int d, int logd) {
   extern __shared__ uint32_t a[];
   const int c = blockIdx.x, li = blockIdx.y;
+  cts += (size_t)blockIdx.z * OUT_N * OUT_N * 4 * d;     // query blockIdx.z
+  out += (size_t)blockIdx.z * (OUT_N + 1) * OUT_N * 2 * d;
   const Mod md = mod_of(li);
   const int half = d >> 1, tid = threadIdx.x;
   const int bits = bits_per(m_conv);
@@ -99,26 +102,27 @@ pack_kernel(const uint32_t* __restrict__ cts,
 
 template <int OUT_N>
 static void launch_pack(const void* cts, const void* v_W, void* out,
-                        const void* tab, int m_conv, int d,
+                        const void* tab, int B, int m_conv, int d,
                         cudaStream_t stream) {
-  dim3 grid(OUT_N, 2);
+  dim3 grid(OUT_N, 2, B);
   pack_kernel<OUT_N><<<grid, d / 2, d * sizeof(uint32_t), stream>>>(
       (const uint32_t*)cts, (const uint32_t*)v_W, (uint32_t*)out,
       (const uint32_t*)tab, m_conv, d, log2_exact(d));
 }
 
-// cts (out_n^2, 2, 1, 2, d) coeff, v_W (out_n, out_n+1, m_conv, 2, d) NTT
-// -> out (out_n+1, out_n, 2, d) NTT.
+// cts (B, out_n^2, 2, 1, 2, d) coeff, v_W (out_n, out_n+1, m_conv, 2, d)
+// NTT, shared by the batch -> out (B, out_n+1, out_n, 2, d) NTT.
 extern "C" int spiral_pack(const void* cts, const void* v_W, void* out,
-                           const void* tab, int out_n, int m_conv, int d,
-                           void* stream) {
-  if (d < 64 || d > 2048 || m_conv < 1 || m_conv > 56)
+                           const void* tab, int B, int out_n, int m_conv,
+                           int d, void* stream) {
+  if (d < 64 || d > 2048 || m_conv < 1 || m_conv > 56 || B < 1 ||
+      B > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (out_n) {
-    case 2: launch_pack<2>(cts, v_W, out, tab, m_conv, d, s); break;
-    case 4: launch_pack<4>(cts, v_W, out, tab, m_conv, d, s); break;
-    case 8: launch_pack<8>(cts, v_W, out, tab, m_conv, d, s); break;
+    case 2: launch_pack<2>(cts, v_W, out, tab, B, m_conv, d, s); break;
+    case 4: launch_pack<4>(cts, v_W, out, tab, B, m_conv, d, s); break;
+    case 8: launch_pack<8>(cts, v_W, out, tab, B, m_conv, d, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

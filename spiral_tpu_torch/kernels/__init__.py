@@ -33,15 +33,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"ntt": 0, "firstdim": 0, "fold": 0, "expand": 0,
-            "fold_pack": 0, "pack": 0}
+            "fold_pack": 0, "pack": 0, "fold_batch": 0, "fold_pack_batch": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "spiral_ntt": (_P, _P, _P, _I, _I, _I, _P),
-    "spiral_firstdim": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "spiral_firstdim": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "spiral_firstdim_pass_queries": (_I, _I),
     "spiral_fold_round": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "spiral_fold_pack_round": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "spiral_pack": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "spiral_fold_round_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P),
+    "spiral_fold_pack_round_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "spiral_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "spiral_expand_keyswitch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 

@@ -5,6 +5,11 @@ SpiralServer.process_query runs the stages of the JAX ``full_packed``
 pipeline: reconstruct + expansion, composition, conversion, first-dim
 multiply + inverse NTT, folding, modulus switch.  On a CUDA device each
 stage is timed with CUDA events; on the CPU with the host clock.
+process_query_batch runs the same stages over a batch of queries (the JAX
+``full_packed_batch``): the database streams once per batch (K2 with all
+B queries' rows) and the fold is one K5 launch per round.  The server
+takes an EncodedDb or an ImplicitDb, whose slab K2 streams num_chunks
+times.
 """
 from __future__ import annotations
 
@@ -19,17 +24,18 @@ from .arith import ntt
 from .core.gadget import build_gadget
 from .core.poly import sub_raw
 from .crypto.decode import (Response, decode_response, modswitch_device,
-                            response_from_device_rows)
+                            response_from_device_rows,
+                            responses_from_device_rows)
 from .crypto.encrypt import Encryptor
 from .crypto.keys import SecretKeys, keygen
 from .crypto.publicparams import PublicParams, generate_public_params
 from .crypto.query import Query, generate_query, reconstruct_cts
 from .server.convert import regev_to_gsw_batch, scal_to_mat_batch
-from .server.db import EncodedDb, encode_db, random_db
+from .server.db import EncodedDb, ImplicitDb, encode_db, random_db
 from .server.expand import coefficient_expansion, reorder_from_stopround
-from .server.firstdim import (finish_output, multiply_query_by_db,
+from .server.firstdim import (finish_output_batch, multiply_query_by_db_batch,
                               reorient_query)
-from .server.fold import fold_ciphertexts
+from .server.fold import fold_ciphertexts, fold_rounds_batch
 
 
 class SpiralClient:
@@ -94,20 +100,41 @@ class StageClock:
         return [(b - a) * 1e6 for a, b in zip(self.marks, self.marks[1:])]
 
 
+def db_tensor(db: EncodedDb | ImplicitDb) -> torch.Tensor:
+    """The tensor K2 streams: the encoded database or the implicit slab."""
+    return db.slab if isinstance(db, ImplicitDb) else db.data
+
+
+def stack_queries(queries: list[Query], device) -> tuple[list[int],
+                                                         torch.Tensor]:
+    """The batch's seeds and its b rows (B, 1, 1, 1, 2, d) on `device`."""
+    if not queries:
+        raise ValueError("empty batch")
+    return ([q.seed for q in queries],
+            torch.stack([q.packed_b for q in queries]).to(device))
+
+
 class SpiralServer:
-    def __init__(self, params: Params, db: EncodedDb, pub: PublicParams):
+    def __init__(self, params: Params, db: EncodedDb | ImplicitDb,
+                 pub: PublicParams):
         if params.expansion_plan() is not None:
             raise NotImplementedError("only the packed one-ct query form")
         self.params, self.db, self.pub = params, db, pub
-        self.device = db.data.device
+        self.device = db_tensor(db).device
+        self.num_chunks = db.num_chunks if isinstance(db, ImplicitDb) else 1
+        self.last_batch_timings: ServerTimings | None = None
         d = params.poly_len
         self._g2_ntt = ntt.forward(build_gadget(params.n1, params.m2, d,
                                                 self.device))
 
-    # -- stages (spiral_tpu/pir.py _build_stages) --
-    def expand(self, seed: int, packed_b: torch.Tensor):
+    # -- stages (spiral_tpu/pir.py _build_stages); the *_batch forms,
+    # compose and convert take and give a leading query axis, as the JAX
+    # batch's jax.vmap does --
+    def expand_batch(self, seeds: list[int], packed_bs: torch.Tensor):
+        """seeds and b rows (B, 1, 1, 1, 2, d) -> first-dimension scalars
+        (B, dim0, 2, 1, 2, d) and GSW sources (B, nu_2*t_gsw, ...)."""
         p = self.params
-        packed_ct = reconstruct_cts(seed, packed_b.to(self.device))[0]
+        packed_ct = reconstruct_cts(seeds, packed_bs.to(self.device))[:, 0]
         n_gsw = p.t_gsw * p.further_dims
         cv = coefficient_expansion(packed_ct, p.g, self.pub.W_exp_left,
                                    self.pub.W_exp_right, p,
@@ -115,25 +142,44 @@ class SpiralServer:
                                    stopround=p.stopround)
         if p.stopround != 0:
             cv = reorder_from_stopround(cv, p.dim0, n_gsw)
-        return cv[:p.dim0], cv[p.dim0:p.dim0 + n_gsw]
+        return cv[:, :p.dim0], cv[:, p.dim0:p.dim0 + n_gsw]
+
+    def expand(self, seed: int, packed_b: torch.Tensor):
+        first, gsw = self.expand_batch([seed], packed_b[None])
+        return first[0], gsw[0]
 
     def compose(self, first_scalars):
+        """([B,] dim0, 2, 1, 2, d) -> ([B,] dim0, n1, n0, 2, d)."""
         return scal_to_mat_batch(first_scalars, self.pub.W_conv, self.params)
 
     def convert(self, gsw_scalars):
+        """([B,] nu_2*t_gsw, 2, 1, 2, d) -> q_pos, q_neg ([B,] nu_2, n1, m2,
+        2, d)."""
         p = self.params
         gsw = regev_to_gsw_batch(
-            gsw_scalars.reshape((p.further_dims, p.t_gsw) +
-                                gsw_scalars.shape[1:]),
+            gsw_scalars.unflatten(-5, (p.further_dims, p.t_gsw)),
             self.pub.W_conv, self.pub.V, p)
-        q_pos = gsw.flip(0)
+        q_pos = gsw.flip(-5)
         q_neg = sub_raw(self._g2_ntt.expand_as(q_pos), q_pos)
         return q_pos, q_neg
 
-    def first_dim(self, C_reg):
+    def first_dim_batch(self, C_reg_b):
+        """(B, dim0, n1, n0, 2, d) -> (B, num_per, n1, n2, 2, d) coeff: K2
+        streams the database (or the slab, num_chunks times) once for the
+        batch."""
         p = self.params
-        res = multiply_query_by_db(self.db.data, reorient_query(C_reg))
-        return ntt.inverse(finish_output(res, p.num_per, p.n2))
+        res = multiply_query_by_db_batch(db_tensor(self.db),
+                                         reorient_query(C_reg_b),
+                                         self.num_chunks)
+        return ntt.inverse(finish_output_batch(res, p.num_per, p.n2))
+
+    def first_dim(self, C_reg):
+        return self.first_dim_batch(C_reg[None])[0]
+
+    def fold_batch(self, cts_b, q_pos_b, q_neg_b):
+        """-> the survivors (B, n1, n2, 2, d), coeff: one K5 launch per
+        round."""
+        return fold_rounds_batch(cts_b, q_pos_b, q_neg_b, self.params)[:, 0]
 
     def fold(self, cts_coeff, q_pos, q_neg):
         return fold_ciphertexts(cts_coeff, q_pos, q_neg, self.params)
@@ -153,11 +199,40 @@ class SpiralServer:
         clock.mark()
         first, rest = modswitch_device(final, self.params)
         clock.mark()
-        t = clock.intervals_us()
-        timings = ServerTimings(
-            expansion_us=t[0], composition_us=t[1], conversion_us=t[2],
-            first_multiply_us=t[3], folding_us=t[4], modswitch_us=t[5])
-        return response_from_device_rows(first, rest), timings
+        return response_from_device_rows(first, rest), _timings(clock)
+
+    def process_query_batch(self, queries: list[Query]):
+        """Answer a batch of queries: (list[Response], seconds), the window
+        from the first stage until the response rows are on the host (the
+        JAX process_query_batch's).  The stage times of the batch are left
+        in ``last_batch_timings``."""
+        t0 = time.perf_counter()
+        clock = StageClock(self.device)
+        seeds, packed = stack_queries(queries, self.device)
+        first_b, gsw_b = self.expand_batch(seeds, packed)
+        clock.mark()
+        C_reg_b = self.compose(first_b)
+        clock.mark()
+        q_pos_b, q_neg_b = self.convert(gsw_b)
+        clock.mark()
+        cts_b = self.first_dim_batch(C_reg_b)
+        clock.mark()
+        finals = self.fold_batch(cts_b, q_pos_b, q_neg_b)
+        clock.mark()
+        first, rest = modswitch_device(finals, self.params)
+        clock.mark()
+        responses = responses_from_device_rows(first, rest)
+        seconds = time.perf_counter() - t0
+        self.last_batch_timings = _timings(clock)
+        return responses, seconds
+
+
+def _timings(clock: StageClock) -> ServerTimings:
+    """The six Spiral stage intervals of a StageClock."""
+    t = clock.intervals_us()
+    return ServerTimings(expansion_us=t[0], composition_us=t[1],
+                         conversion_us=t[2], first_multiply_us=t[3],
+                         folding_us=t[4], modswitch_us=t[5])
 
 
 def run_pir(params: Params, idx: int | None = None, seed: int = 0,

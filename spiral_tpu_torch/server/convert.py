@@ -22,8 +22,11 @@ def _special_distribute(ginv_ntt: torch.Tensor) -> torch.Tensor:
 
 def scal_to_mat_batch(cv: torch.Tensor, W: torch.Tensor, params: Params,
                       ginv_ntt: torch.Tensor | None = None) -> torch.Tensor:
-    """cv (N, n0, 1, 2, d) NTT scalar cts, W (n1, n0*m_conv, 2, d) ->
-    (N, n1, n0, 2, d) matrix cts."""
+    """cv (..., N, n0, 1, 2, d) NTT scalar cts, W (n1, n0*m_conv, 2, d) ->
+    (..., N, n1, n0, 2, d) matrix cts; a leading query axis is what
+    jax.vmap of the JAX function computes."""
+    lead = cv.shape[:-5]
+    cv = cv.reshape((-1,) + cv.shape[-4:])
     if ginv_ntt is None:
         c_coeff = ntt.inverse(cv)
         ginv_ntt = ntt.forward(gadget_invert_raw(c_coeff[:, 0:1],
@@ -33,13 +36,17 @@ def scal_to_mat_batch(cv: torch.Tensor, W: torch.Tensor, params: Params,
     pad = torch.zeros_like(prod)
     pad[:, 1, 0] = c1
     pad[:, 2, 1] = c1
-    return add_raw(prod, pad)
+    out = add_raw(prod, pad)
+    return out.reshape(lead + (-1,) + out.shape[1:])
 
 
 def regev_to_gsw_batch(cv: torch.Tensor, W: torch.Tensor, V: torch.Tensor,
                        params: Params) -> torch.Tensor:
-    """cv (nu_2, t_gsw, n0, 1, 2, d) NTT scalar cts -> (nu_2, n1, m2, 2, d)
-    GSW cts, columns in the reference's permuted order (convert.py:78-85)."""
+    """cv (..., nu_2, t_gsw, n0, 1, 2, d) NTT scalar cts -> (..., nu_2, n1,
+    m2, 2, d) GSW cts, columns in the reference's permuted order
+    (convert.py:78-85); a leading query axis as jax.vmap gives it."""
+    lead = cv.shape[:-6]
+    cv = cv.reshape((-1,) + cv.shape[-5:])
     nu2, t = cv.shape[:2]
     m_conv, n1, n0, d = params.m_conv, params.n1, params.n0, params.poly_len
     flat = cv.reshape((nu2 * t,) + cv.shape[2:])
@@ -53,5 +60,6 @@ def regev_to_gsw_batch(cv: torch.Tensor, W: torch.Tensor, V: torch.Tensor,
     chat = torch.cat([g0, g1], dim=2).transpose(1, 2)   # (nu2, 2m_conv, t, ..)
     prod = matmul_raw(V, chat)                          # (nu2, n1, t, 2, d)
     blocks = torch.cat([prod.transpose(1, 2)[:, :, :, None], stm], dim=3)
-    return blocks.permute(0, 2, 1, 3, 4, 5).reshape(nu2, n1, t * (n0 + 1),
-                                                    2, d)
+    out = blocks.permute(0, 2, 1, 3, 4, 5).reshape(nu2, n1, t * (n0 + 1),
+                                                   2, d)
+    return out.reshape(lead + (-1,) + out.shape[-4:])

@@ -10,6 +10,9 @@ contiguous K x m matrix and each k row of it is m consecutive residues
 (coalesced loads across a warp).  Further-index ii sits at row position
 pos = bitrev(ii), as in the JAX layout (num_per, n2, K, 2, d), so fold
 rounds pair adjacent ciphertexts.
+
+An ``ImplicitDb`` (the implicit huge-database mode) holds one random slab
+in the same layout, streamed num_chunks times by the first-dim multiply.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..params import Params
+from ..params import B_I, P_I, Params
 from ..arith import ntt
 from ..arith.crt import residues_from_values
 
@@ -30,6 +33,67 @@ BLOCK_POLYS = 32768
 class EncodedDb:
     data: torch.Tensor    # (2, d, dim0*n0, num_per*n2) int32, NTT domain
     params: Params
+
+
+@dataclasses.dataclass
+class ImplicitDb:
+    """Implicit huge-database mode (counterpart of spiral_tpu/server/db.py
+    ImplicitDb; ref --random-data): a random NTT-domain slab covering
+    `slab_per` first-dimension rows, streamed `num_chunks` times by the
+    first-dim multiply, so the server does the work of a database of
+    slab_per * num_chunks rows without holding it.  Its answers do not
+    decode, by design."""
+    slab: torch.Tensor    # (2, d, K, slab_per*n2) int32, K2's layout
+    slab_per: int
+    num_chunks: int
+    params: Params
+
+
+def _random_slab(rng: np.random.Generator, rows: int, n2: int, K: int,
+                 d: int, device) -> torch.Tensor:
+    """The JAX slab draws, in its order: residues mod P_I over (rows, n2,
+    K, d), then mod B_I; written as (2, d, K, rows*n2), column row*n2 + c
+    (no bit reversal: the slab is random)."""
+    out = torch.empty((2, d, K, rows * n2), dtype=torch.int32, device=device)
+    for li, p in enumerate((P_I, B_I)):
+        x = rng.integers(0, p, size=(rows, n2, K, d), dtype=np.uint64)
+        t = torch.from_numpy(x.astype(np.int32)).to(device)
+        out[li] = t.permute(3, 2, 0, 1).reshape(d, K, rows * n2)
+    return out
+
+
+def slab_rows(rows: int, row_bytes: int, max_slab_bytes: int) -> int:
+    """The largest divisor of `rows` within max_slab_bytes (at least 1)."""
+    n = max(1, min(rows, max_slab_bytes // row_bytes))
+    while rows % n:
+        n -= 1
+    return n
+
+
+def random_implicit_db(params: Params, rng: np.random.Generator,
+                       max_slab_bytes: int = 2 << 30,
+                       device="cuda") -> ImplicitDb:
+    """Spiral's implicit database: the slab's rows are further-index
+    positions; the same draws and sizing as spiral_tpu's
+    random_implicit_db (4 bytes per residue, as its int8 limbs)."""
+    num_per, n2, d = params.num_per, params.n2, params.poly_len
+    K = params.dim0 * params.n0
+    slab_per = slab_rows(num_per, n2 * K * 2 * d * 4, max_slab_bytes)
+    return ImplicitDb(_random_slab(rng, slab_per, n2, K, d, device),
+                      slab_per, num_per // slab_per, params)
+
+
+def random_implicit_pack_db(params: Params, rng: np.random.Generator,
+                            max_slab_bytes: int = 2 << 30,
+                            device="cuda") -> ImplicitDb:
+    """The pack variant's implicit database: rows are the (trial, num_per)
+    groups of the pack layout, trial-major, as spiral_tpu's
+    random_implicit_pack_db draws them."""
+    d, K = params.poly_len, params.dim0
+    rows = params.out_n ** 2 * params.num_per
+    per = slab_rows(rows, K * 2 * d * 4, max_slab_bytes)
+    return ImplicitDb(_random_slab(rng, per, 1, K, d, device), per,
+                      rows // per, params)
 
 
 def bitrev_perm(n: int) -> np.ndarray:

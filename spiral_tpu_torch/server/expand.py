@@ -56,38 +56,54 @@ def coefficient_expansion(cv0: torch.Tensor, g: int, W_left: list,
                           W_right: list, params: Params,
                           max_bits_to_gen_right: int = 0,
                           stopround: int = 0) -> torch.Tensor:
-    """Expand one ct (2, 1, 2, d) NTT into 2^g cts (2^g, 2, 1, 2, d).  With
-    stopround > 0, odd slots stop after round `stopround`, where only odd
-    slot i <= max_bits_to_gen_right is updated (expand.py:131-167)."""
+    """Expand one ct (2, 1, 2, d) NTT into 2^g cts (2^g, 2, 1, 2, d), or a
+    batch (B, 2, 1, 2, d) into (B, 2^g, 2, 1, 2, d).  With stopround > 0,
+    odd slots stop after round `stopround`, where only odd slot i <=
+    max_bits_to_gen_right is updated (expand.py:131-167).  The batch shares
+    the keys W, so each round makes one inverse NTT, one gather and one K4
+    launch per side for all B queries (what jax.vmap of the JAX expansion
+    computes)."""
+    single = cv0.dim() == 4
     d = params.poly_len
-    cv = cv0[None]
+    cv = cv0[:, None] if not single else cv0[None, None]   # (B, 1, ...)
+    B = cv.shape[0]
+
+    def ks(c, c_auto, W, m):      # (B, n, 2, 1, 2, d) for all B at once
+        n = c.shape[1]
+        out = keyswitch(c.reshape(B * n, 2, 1, 2, d).contiguous(),
+                        c_auto.reshape(B * n, 2, 1, 2, d).contiguous(), W, m)
+        return out.reshape(B, n, 2, 1, 2, d)
+
     for r in range(g):
         t = (d >> r) + 1
         neg1 = ntt.forward(monomial(-1, d - (1 << r), d, cv.device))[0, 0]
-        cv = torch.cat([cv, scalar_mul_raw(neg1, cv)], dim=0)
-        evens, odds = cv[0::2].contiguous(), cv[1::2].contiguous()
+        cv = torch.cat([cv, scalar_mul_raw(neg1, cv)], dim=1)
+        evens, odds = cv[:, 0::2].contiguous(), cv[:, 1::2].contiguous()
         odd_live = stopround == 0 or r <= stopround
         todo = cv if odd_live else evens
         c_auto = automorph_raw(ntt.inverse(todo), t)
         if odd_live:
-            c_even, c_odd = c_auto[0::2].contiguous(), c_auto[1::2].contiguous()
+            c_even, c_odd = c_auto[:, 0::2], c_auto[:, 1::2]
         else:
             c_even = c_auto
-        new_evens = keyswitch(evens, c_even, W_left[r], params.m_exp)
+        new_evens = ks(evens, c_even, W_left[r], params.m_exp)
         if not odd_live:
             new_odds = odds
         else:
-            keep = odds.shape[0]
+            keep = odds.shape[1]
             if stopround > 0 and r == stopround:
                 keep = min(keep, max_bits_to_gen_right + 1)
             new_odds = torch.cat([
-                keyswitch(odds[:keep], c_odd[:keep], W_right[r],
-                          params.m_exp_right), odds[keep:]])
-        cv = torch.stack([new_evens, new_odds], dim=1).reshape(
-            (cv.shape[0],) + cv.shape[1:])
-    return cv
+                ks(odds[:, :keep], c_odd[:, :keep], W_right[r],
+                   params.m_exp_right), odds[:, keep:]], dim=1)
+        cv = torch.stack([new_evens, new_odds], dim=2).reshape(
+            (B, cv.shape[1]) + cv.shape[2:])
+    return cv[0] if single else cv
 
 
 def reorder_from_stopround(cv, even_count: int, odd_count: int):
-    """Evens first, then odds."""
-    return torch.cat([cv[0::2][:even_count], cv[1::2][:odd_count]])
+    """Evens first, then odds, along the ct axis (-5) of ([B,] n, 2, 1, 2,
+    d)."""
+    even, odd = cv.unflatten(-5, (-1, 2)).unbind(-5)
+    return torch.cat([even[..., :even_count, :, :, :, :],
+                      odd[..., :odd_count, :, :, :, :]], dim=-5)

@@ -1,12 +1,19 @@
 """First-dimension multiply, the stage that streams the database
-(counterpart of spiral_tpu/server/firstdim.py).
+(counterpart of spiral_tpu/server/firstdim.py), for one query or a batch,
+over an encoded database or an implicit one's slab.
 
-out[limb, z, g, col] = sum_k Q[k, g, limb, z] * DB[limb, z, k, col] mod p
+out[limb, z, b, g, i*m + col] =
+    sum_k Q_b[k, g, limb, (z - i) mod d] * DB[limb, z, k, col] mod p
 
-On a CUDA tensor ``multiply_query_by_db`` launches kernel K2
+Chunk i (the implicit mode: one slab streamed num_chunks times) multiplies
+the database by the query rolled i NTT slots, as the JAX package's
+multiply_query_by_db_implicit(_batch) does; one chunk is the ordinary
+multiply.  On CUDA tensors every form is one call of kernel K2
 (csrc/firstdim.cu), which replaces the Pallas first-dim kernel
-(spiral_tpu/server/firstdim.py multiply_query_by_db_fused); on the CPU it
-runs ``multiply_plain``.
+(spiral_tpu/server/firstdim.py multiply_query_by_db_fused) and the XLA
+multiply_query_by_db_mxu_batch / implicit loops; the database streams once
+per chunk for the whole batch.  On the CPU they run ``multiply_plain`` /
+``multiply_batch_plain``.
 """
 from __future__ import annotations
 
@@ -21,9 +28,11 @@ SLOT_CHUNK = 64
 
 
 def reorient_query(cts: torch.Tensor) -> torch.Tensor:
-    """dim0 matrix-Regev cts (dim0, n1, n0, 2, d) -> (K = dim0*n0, n1, 2, d)."""
-    dim0, n1, n0 = cts.shape[:3]
-    return cts.transpose(1, 2).reshape(dim0 * n0, n1, *cts.shape[3:])
+    """dim0 matrix-Regev cts (..., dim0, n1, n0, 2, d) ->
+    (..., K = dim0*n0, n1, 2, d)."""
+    dim0, n1, n0 = cts.shape[-5:-2]
+    return cts.transpose(-4, -3).reshape(
+        cts.shape[:-5] + (dim0 * n0, n1) + cts.shape[-2:])
 
 
 def multiply_plain(db: torch.Tensor, query_k: torch.Tensor) -> torch.Tensor:
@@ -46,26 +55,77 @@ def multiply_plain(db: torch.Tensor, query_k: torch.Tensor) -> torch.Tensor:
     return torch.cat(out, dim=1).to(torch.int32)
 
 
-def multiply_query_by_db(db: torch.Tensor, query_k: torch.Tensor
-                         ) -> torch.Tensor:
-    if kernels.on_cpu(db, query_k):
-        return multiply_plain(db, query_k)
+def multiply_batch_plain(db: torch.Tensor, query_k_b: torch.Tensor,
+                         num_chunks: int = 1) -> torch.Tensor:
+    """db (2, d, K, m), query_k_b (B, K, n1, 2, d) -> (2, d, B, n1,
+    num_chunks*m): chunk i is ``multiply_plain`` of the queries rolled i
+    slots (torch.roll along d), its columns at i*m."""
+    B, K, n1, _, d = query_k_b.shape
+    outs = []
+    for i in range(num_chunks):
+        q = torch.roll(query_k_b, i, dims=-1)
+        outs.append(multiply_plain(
+            db, q.transpose(0, 1).reshape(K, B * n1, 2, d)))
+    return torch.cat(outs, dim=-1).reshape(2, d, B, n1, -1)
+
+
+def multiply_query_by_db_batch(db: torch.Tensor, query_k_b: torch.Tensor,
+                               num_chunks: int = 1) -> torch.Tensor:
+    """db (2, d, K, m), query_k_b (B, K, n1, 2, d) -> (2, d, B, n1,
+    num_chunks*m)."""
+    if kernels.on_cpu(db, query_k_b):
+        return multiply_batch_plain(db, query_k_b, num_chunks)
     crt, d, K, m = db.shape
-    n1 = query_k.shape[1]
+    B, _, n1 = query_k_b.shape[:3]
+    G = B * n1
     kernels.require(db, (2, d, K, m), "firstdim db")
-    q = query_k.permute(2, 3, 0, 1).contiguous()        # (2, d, K, n1)
-    kernels.require(q, (2, d, K, n1), "firstdim query")
+    q = query_k_b.permute(3, 4, 1, 0, 2).reshape(2, d, K, G).contiguous()
+    kernels.require(q, (2, d, K, G), "firstdim query")
+    out = torch.empty((2, d, B, n1, num_chunks * m), dtype=torch.int32,
+                      device=db.device)
     if n1 > 4:
         raise ValueError(f"firstdim kernel takes n1 <= 4, got {n1}")
-    out = torch.empty((2, d, n1, m), dtype=torch.int32, device=db.device)
     kernels.check(kernels.lib().spiral_firstdim(
-        db.data_ptr(), q.data_ptr(), out.data_ptr(), d, K, m, n1,
-        kernels.stream()), "spiral_firstdim")
-    kernels.LAUNCHES["firstdim"] += 1
+        db.data_ptr(), q.data_ptr(), out.data_ptr(), d, K, m, B, n1,
+        num_chunks, kernels.stream()), "spiral_firstdim")
+    kernels.LAUNCHES["firstdim"] += passes(B, K, n1)
     return out
+
+
+def passes(B: int, K: int, n1: int) -> int:
+    """K2's launches for B queries of n1 rows over K: one per pass of the
+    queries whose rows fit a block's shared memory (csrc/firstdim.cu)."""
+    return -(-B // kernels.lib().spiral_firstdim_pass_queries(K, n1))
+
+
+def multiply_query_by_db(db: torch.Tensor, query_k: torch.Tensor
+                         ) -> torch.Tensor:
+    """One query (K, n1, 2, d) -> (2, d, n1, m)."""
+    return multiply_query_by_db_batch(db, query_k[None])[:, :, 0]
+
+
+def multiply_query_by_db_implicit(slab: torch.Tensor, query_k: torch.Tensor,
+                                  num_chunks: int) -> torch.Tensor:
+    """The slab (2, d, K, m_slab) streamed num_chunks times for one query
+    (K, n1, 2, d) -> (2, d, n1, num_chunks*m_slab)."""
+    return multiply_query_by_db_batch(slab, query_k[None], num_chunks)[:, :, 0]
+
+
+def multiply_query_by_db_implicit_batch(slab: torch.Tensor,
+                                        query_k_b: torch.Tensor,
+                                        num_chunks: int) -> torch.Tensor:
+    """(B, K, n1, 2, d) -> (2, d, B, n1, num_chunks*m_slab)."""
+    return multiply_query_by_db_batch(slab, query_k_b, num_chunks)
 
 
 def finish_output(res: torch.Tensor, num_per: int, n2: int) -> torch.Tensor:
     """(2, d, n1, num_per*n2) -> (num_per, n1, n2, 2, d)."""
     crt, d, n1, _ = res.shape
     return res.reshape(crt, d, n1, num_per, n2).permute(3, 2, 4, 0, 1)
+
+
+def finish_output_batch(res: torch.Tensor, num_per: int,
+                        n2: int) -> torch.Tensor:
+    """(2, d, B, n1, num_per*n2) -> (B, num_per, n1, n2, 2, d)."""
+    crt, d, B, n1, _ = res.shape
+    return res.reshape(crt, d, B, n1, num_per, n2).permute(2, 4, 3, 5, 0, 1)

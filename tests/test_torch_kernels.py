@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K4, K6 and K7 against their plain PyTorch versions on
-the card, bit for bit.  Every test is marked `gpu` and takes the `cuda` fixture, which
+"""CUDA kernels K1-K7 against their plain PyTorch versions on the card,
+bit for bit.  Every test is marked `gpu` and takes the `cuda` fixture, which
 skips it on a machine without a CUDA device.  On the card (no jax there, so skip the suite's
 conftest, which imports it):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -30,10 +30,10 @@ def _residues(gen, shape):
     return torch.stack(limbs, dim=-2)
 
 
-def _same(got, want, kernel):
+def _same(got, want, kernel, launches=1):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert kernels.LAUNCHES[kernel] == 1
+    assert kernels.LAUNCHES[kernel] == launches
 
 
 @pytest.mark.parametrize("d", [256, 2048])
@@ -83,6 +83,52 @@ def test_fold_pack_kernel(cuda, t_gsw):
 def test_pack_kernel(cuda, out_n, m_conv):
     d = 2048
     cts = _residues(cuda, (out_n * out_n, 2, 1, d))
+    v_W = _residues(cuda, (out_n, out_n + 1, m_conv, d))
+    _same(pack.pack_ciphertexts(cts, v_W),
+          pack.pack_ciphertexts_plain(cts, v_W), "pack")
+
+
+# B queries of n1 rows: one pass takes the queries whose rows fit 96 KB of
+# shared memory (all 8 at K = 512; 4 of 11 at K = 2,048, so three passes);
+# chunked (the implicit mode) with a roll of the query per chunk; m = 100
+# is not a multiple of 4, so a thread takes one column instead of four
+@pytest.mark.parametrize("B, n1, K, m, chunks", [
+    (8, 3, 512, 128, 1), (8, 2, 512, 128, 1), (11, 3, 2048, 128, 1),
+    (2, 3, 512, 128, 3), (8, 3, 1024, 128, 2), (3, 2, 256, 100, 2)])
+def test_firstdim_batch_kernel(cuda, B, n1, K, m, chunks):
+    d = 64
+    db = _residues(cuda, (d, K, m)).permute(2, 0, 1, 3).contiguous()
+    qk = _residues(cuda, (B, K, n1, d))
+    _same(firstdim.multiply_query_by_db_batch(db, qk, chunks),
+          firstdim.multiply_batch_plain(db, qk, chunks), "firstdim",
+          firstdim.passes(B, K, n1))
+    assert firstdim.passes(11, 2048, 3) == 3
+    assert firstdim.passes(8, 1024, 3) == 1
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("t_gsw", [8, 9])
+def test_fold_batch_kernel(cuda, t_gsw, B):
+    d = 2048
+    cts = _residues(cuda, (B, 4, 3, 2, d))
+    qn, qp = (_residues(cuda, (B, 3, 3 * t_gsw, d)) for _ in range(2))
+    _same(fold.fold_round_batch(cts, qn, qp, t_gsw),
+          fold.fold_round_plain(cts, qn, qp, t_gsw), "fold_batch")
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("t_gsw", [8, 9])
+def test_fold_pack_batch_kernel(cuda, t_gsw, B):
+    d = 2048
+    cts = _residues(cuda, (B, 4, 4, 2, 1, d))
+    qn, qp = (_residues(cuda, (B, 2, 2 * t_gsw, d)) for _ in range(2))
+    _same(fold.fold_pack_round_batch(cts, qn, qp, t_gsw),
+          fold.fold_pack_round_plain(cts, qn, qp, t_gsw), "fold_pack_batch")
+
+
+def test_pack_batch_kernel(cuda):
+    d, out_n, m_conv = 2048, 4, 4
+    cts = _residues(cuda, (3, out_n * out_n, 2, 1, d))
     v_W = _residues(cuda, (out_n, out_n + 1, m_conv, d))
     _same(pack.pack_ciphertexts(cts, v_W),
           pack.pack_ciphertexts_plain(cts, v_W), "pack")
