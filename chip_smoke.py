@@ -8,13 +8,20 @@ Phases, each printing its own lines and its wall time:
      nvidia-smi's name and power limit;
   2. build of the CUDA kernels from spiral_tpu_torch/csrc (one nvcc per
      source, in parallel): K1 ntt, K2 firstdim, K3 fold, K4 expand,
-     K5 fold_batch and fold_pack_batch, K6 fold_pack, K7 pack;
+     K5 fold_batch and fold_pack_batch, K6 fold_pack, K7 pack, K8a auto,
+     K8b fold_ntt and fold_contract;
   3. each kernel against its plain PyTorch version on the card, for bit
      equality, with both times and the kernel's bound: K1-K4 at the
      spiral_20_256 shapes; K1, K2, K4, K6 and K7 at the spiralpack_20_256
      shapes; K5 (both forms) and K2 batched at B = 8 of both paths, K2
      chunked at the spiral_24_256 slab, and K3, K4, K5 at spiral_24_256's
-     new digit widths;
+     new digit widths; K8a at the first and the largest expansion round
+     of spiral_20_256, one query's and a batch's, K8b's two kernels at
+     fold rounds 1 (t_gsw 9 and 8) and the last, and at spiral_24_256's
+     round 1 (t_gsw 11); then every fold round of spiral_20_256 (t_gsw 9)
+     and spiral_24_256 (t_gsw 11), and round 1 at t_gsw 8, as K3 and as a
+     K8b round (K8b-1, K8b-2, K1) on the same inputs, both times on one
+     line with the engine the fold picks for it;
   4. Spiral: a tiny flow on the card against the plain CPU flow (equal
      response rows), then end to end at spiral_20_256: a seeded client, a
      2^20 x 256 B database from a numpy seed encoded on the card, and
@@ -22,13 +29,17 @@ Phases, each printing its own lines and its wall time:
      against its record, with every kernel's launch count over that run;
      then a batch of 8 (indices 0, total_n - 1 and six random ones) in
      one process_query_batch, each answer decoded and equal to its
-     single-query rows;
+     single-query rows; then the same three queries with the fold forced
+     to K3 in every round and to K8b in every round, each decoded and
+     equal to the default server's rows;
   5. SpiralPack, the same at tiny_pack and spiralpack_20_256 (2^20 x 256 B
      as 8,192 records of 4 x 4 polys), after the Spiral database is freed;
   6. the implicit huge-database mode at spiral_24_256 (2^24 x 256 B
      served from a 2 GiB random slab streamed 32 times): one query and a
      batch of 8 holding it, whose rows for it must equal the single run's
-     (the answers cannot decode: the slab is random).
+     (the answers cannot decode: the slab is random); then that query
+     with the fold forced to K3 and to K8b in every round, whose rows must
+     equal the default server's.
 Each driven path counts launches from 0 and fails if a kernel of the path
 was never launched.  The line before last is the kernels' JSON, the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero.
@@ -54,6 +65,10 @@ import torch
 # reductions and the CRT lifts are not counted).
 HBM_BYTES_PER_S = 3.35e12
 INT_PRODUCTS_PER_S = 132 * 64 * 1.98e9
+# K8b-2's int8 multiply-adds run on the tensor cores: the H100 SXM's dense
+# int8 peak, 1,979 TOPS (NVIDIA H100 data sheet), counts two operations
+# per multiply-add
+INT8_MACS_PER_S = 1979e12 / 2
 
 # kernel -> (its CUDA source, the TPU kernel's function it replaces)
 KERNEL_META = {
@@ -73,11 +88,31 @@ KERNEL_META = {
                    "spiral_tpu/server/fold_pallas.py:512"),
     "fold_pack_batch": ("spiral_tpu_torch/csrc/fold.cu",
                         "spiral_tpu/server/fold_pallas.py:512"),
+    "auto": ("spiral_tpu_torch/csrc/expand.cu",
+             "spiral_tpu/server/expand_pallas.py:92"),
+    "fold_ntt": ("spiral_tpu_torch/csrc/fold_mxu.cu",
+                 "spiral_tpu/server/fold_pallas.py:704"),
+    "fold_contract": ("spiral_tpu_torch/csrc/fold_mxu.cu",
+                      "spiral_tpu/server/fold_pallas.py:766"),
 }
-SPIRAL_PATH = ("ntt", "firstdim", "fold", "expand")
-PACK_PATH = ("ntt", "firstdim", "expand", "fold_pack", "pack")
-SPIRAL_BATCH_PATH = ("ntt", "firstdim", "expand", "fold_batch")
-PACK_BATCH_PATH = ("ntt", "firstdim", "expand", "fold_pack_batch", "pack")
+KERNEL_NOTES = {
+    "fold_contract": "replaces an XLA dot_general (_fold_contract_mxu, "
+                     "with the prescale _fold_qpre), not a pallas_call: "
+                     "the JAX mxu fold's contraction outside its Pallas "
+                     "kernel _fold_ntt_call",
+}
+SPIRAL_PATH = ("ntt", "firstdim", "fold", "expand", "auto", "fold_ntt",
+               "fold_contract")
+PACK_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack", "pack")
+SPIRAL_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_batch")
+PACK_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack_batch",
+                   "pack")
+# the fold's engine forced in every round: (tag, MXU_MAX_K3_BLOCKS, the
+# kernels it must launch, the kernels it must not)
+FOLD_FORCED = (("K3 every round", 0, ("fold",), ("fold_ntt",
+                                                 "fold_contract")),
+               ("K8b every round", 1 << 30, ("fold_ntt", "fold_contract"),
+                ("fold",)))
 BATCH = 8
 # a kernel whose mean over back-to-back launches is below this is timed
 # again as the replay of a CUDA graph of those launches
@@ -260,28 +295,31 @@ def check_kernels(seed: int) -> dict:
                                  ntt_products(d))))
 
     cases += batch_cases(gen)
+    cases += mxu_cases(gen)
 
     results = {}
-    for name, kernel, run, plain, reps, inputs, prods in cases:
+    for name, kernel, run, plain, reps, inputs, prods, *macs in cases:
+        # macs: int8 tensor-core multiply-adds, where the kernel has them
+        macs = macs[0] if macs else 0
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         del want
         nbytes = sum(t.numel() * 4 for t in inputs) + got.numel() * 4
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = prods / INT_PRODUCTS_PER_S * 1e3
+        ops_ms = max(prods / INT_PRODUCTS_PER_S, macs / INT8_MACS_PER_S) * 1e3
         ms, timed_by = cuda_ms(run, reps)
         rec = {"max_abs_err": err, "ms": ms, "timed_by": timed_by,
                "plain_ms": cuda_ms(plain, 1)[0],
                "bound_ms": max(mem_ms, ops_ms),
                "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
-               "bytes": nbytes, "products": prods,
+               "bytes": nbytes, "products": prods, "int8_macs": macs,
                "shape": list(got.shape)}
         print(f"check {name}: max_abs_err={err} (tolerance 0) kernel "
               f"{rec['ms']:.4f} ms ({timed_by}) plain {rec['plain_ms']:.4f} "
               f"ms bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-              f"{nbytes} B, {prods} products) out {tuple(got.shape)}",
-              flush=True)
+              f"{nbytes} B, {prods} products, {macs} int8 MACs) out "
+              f"{tuple(got.shape)}", flush=True)
         if err:
             raise SystemExit(f"{name}: kernel differs from its plain version")
         results.setdefault(kernel, {})[name] = rec
@@ -396,6 +434,127 @@ def batch_cases(gen) -> list:
     return cases
 
 
+def mxu_cases(gen) -> list:
+    """Phase 3 cases of K8a and K8b: K8a at spiral_20_256's expansion
+    round 0 (2 cts, t = d + 1) and its largest round (r = 8, past the
+    stopround: the 256 even cts, t = 9), that round also for a batch of
+    BATCH queries; K8b-1 and K8b-2 at fold round 1 (m_out 64) at t_gsw 9
+    and 8, at the last round (m_out 1), and at spiral_24_256's round 1
+    (t_gsw 11, m_out 1,024: G is 2.2 GB)."""
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.server import expand, fold
+
+    sp, big = preset("spiral_20_256"), preset("spiral_24_256")
+    d, n1, n2 = sp.poly_len, sp.n1, sp.n2
+    cases = []
+    for tag, r, shape in (("r0", 0, (2,)), (f"r{sp.g - 1}", sp.g - 1,
+                                            (1 << (sp.g - 1),)),
+                          (f"r{sp.g - 1}_b{BATCH}", sp.g - 1,
+                           (BATCH, 1 << (sp.g - 1)))):
+        t = (d >> r) + 1
+        x = rand_residues(gen, shape + (2, 1, d))
+        cases.append((f"auto_{tag}", "auto",
+                      lambda x=x, t=t: expand.inv_ntt_automorph(x, t),
+                      lambda x=x, t=t: expand.inv_ntt_automorph_plain(x, t),
+                      20, [x], x.numel() // d * ntt_products(d)))
+    for tag, t, m_out in ((f"t{sp.t_gsw}", sp.t_gsw, sp.num_per // 2),
+                          ("t8", preset("spiral_20_256_paper").t_gsw,
+                           sp.num_per // 2),
+                          (f"t{sp.t_gsw}_last", sp.t_gsw, 1),
+                          (f"t{big.t_gsw}", big.t_gsw, big.num_per // 2)):
+        pairs = rand_residues(gen, (m_out, 2, n1, n2, d))
+        G = rand_residues(gen, (2, t, m_out, n1 * n2, d), 0)
+        qn, qp = (rand_residues(gen, (n1, t * n1, d)) for _ in range(2))
+        cases.append((f"fold_ntt_{tag}", "fold_ntt",
+                      lambda pairs=pairs, t=t: fold.fold_ntt(pairs, t),
+                      lambda pairs=pairs, t=t: fold.fold_ntt_plain(pairs, t),
+                      5, [pairs], m_out * 2 * n1 * n2 * 2 * t *
+                      ntt_products(d)))
+        # M = 4 i-limbs x n1 rows, K = 2 s x t k x n1 x 4 j-limbs, N =
+        # m_out x n2, one GEMM per (limb, slot)
+        cases.append((f"fold_contract_{tag}", "fold_contract",
+                      lambda G=G, qn=qn, qp=qp, t=t: fold.fold_contract(
+                          G, qn, qp, t),
+                      lambda G=G, qn=qn, qp=qp, t=t: fold.fold_contract_plain(
+                          G, qn, qp, t), 5, [G, qn, qp], 0,
+                      2 * d * (4 * n1) * (8 * t * n1) * (m_out * n2)))
+    return cases
+
+
+def compare_fold_rounds(gen) -> dict:
+    """Every fold round of spiral_20_256 (t_gsw 9) and spiral_24_256 (t_gsw
+    11), and round 1 at t_gsw 8, as K3 and as a K8b round (K8b-1, K8b-2
+    and K1's inverse) on the same inputs: bit equality, then both timed in
+    turns (K3, K8b, K8b, K3), beside the engine fold_rounds picks for the
+    round (fold.round_uses_mxu).  Per preset, the sums over its rounds of
+    K3's, K8b's and the picked engine's times."""
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.server import fold
+
+    out = {}
+    for name, last in (("spiral_20_256", None), ("spiral_24_256", None),
+                       ("spiral_20_256_paper", 1)):
+        p = preset(name)
+        t, d, n1, n2 = p.t_gsw, p.poly_len, p.n1, p.n2
+        rounds, sums = [], {"k3": 0.0, "mxu": 0.0, "picked": 0.0}
+        for r in range(p.nu_2 if last is None else last):
+            m_out = p.num_per >> (r + 1)
+            cts = rand_residues(gen, (2 * m_out, n1, n2, d))
+            qn, qp = (rand_residues(gen, (n1, t * n1, d)) for _ in range(2))
+
+            def mxu(cts=cts, qn=qn, qp=qp):
+                return fold.fold_round_mxu(cts, qn, qp, t)
+
+            def k3(cts=cts, qn=qn, qp=qp):
+                return fold.fold_round(cts, qn, qp, t)
+
+            same = torch.equal(mxu(), k3())
+            ms = [cuda_ms(f, 5) for f in (k3, mxu, mxu, k3)]
+            k3_ms = (ms[0][0] + ms[3][0]) / 2
+            mxu_ms = (ms[1][0] + ms[2][0]) / 2
+            picked = "K8b" if fold.round_uses_mxu(m_out, n2) else "K3"
+            sums["k3"] += k3_ms
+            sums["mxu"] += mxu_ms
+            sums["picked"] += mxu_ms if picked == "K8b" else k3_ms
+            rounds.append({"round": r + 1, "m_out": m_out, "equal": same,
+                           "k3_ms": [ms[0][0], ms[3][0]],
+                           "mxu_ms": [ms[1][0], ms[2][0]],
+                           "timed_by": [m[1] for m in ms], "picked": picked})
+            print(f"fold {name} t{t} round {r + 1} (m_out {m_out}, K3 "
+                  f"{2 * m_out * n2} blocks): K8b round (K8b-1 + K8b-2 + K1) "
+                  f"{ms[1][0]:.4f} / {ms[2][0]:.4f} ms vs K3 {ms[0][0]:.4f} "
+                  f"/ {ms[3][0]:.4f} ms (in turns K3, K8b, K8b, K3; "
+                  f"{', '.join(m[1] for m in ms)}), picked {picked}, "
+                  f"outputs equal: {same}", flush=True)
+            if not same:
+                raise SystemExit(f"{name} round {r + 1}: the K8b round "
+                                 f"differs from K3's")
+            del cts, qn, qp
+            torch.cuda.empty_cache()
+        print(f"fold {name} t{t} over {len(rounds)} rounds: K3 "
+              f"{sums['k3']:.4f} ms, K8b {sums['mxu']:.4f} ms, the picked "
+              f"engines {sums['picked']:.4f} ms", flush=True)
+        out[f"{name}_t{t}"] = {"rounds": rounds, "sum_ms": sums}
+    return out
+
+
+def library_probe() -> dict:
+    """Whether PyTorch has a batched int8 GEMM on CUDA (K8b-2's library
+    yardstick): each call's result or its error."""
+    x = torch.ones((4, 32, 32), dtype=torch.int8, device="cuda")
+    out = {}
+    for name, f in (("torch.bmm int8", lambda: torch.bmm(x, x)),
+                    ("torch._int_mm 3-D", lambda: torch._int_mm(x, x))):
+        try:
+            f()
+            torch.cuda.synchronize()
+            out[name] = "works"
+        except (RuntimeError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    print(f"library probe: {out}", flush=True)
+    return out
+
+
 def _variant(pack: bool):
     """(client class, server class, random db, encode db) of a variant."""
     from spiral_tpu_torch import pack as pk
@@ -454,16 +613,62 @@ def report_batch(tag: str, server, n: int, seconds: float, db_bytes: int,
         raise SystemExit(f"{tag}: a kernel of the path was never launched")
 
 
+def run_fold_forced(tag: str, server, answered: list, card: str,
+                    decode=None) -> tuple[dict, dict]:
+    """Serve queries again with the fold's engine forced in every round
+    (FOLD_FORCED): each response's rows must equal the default server's
+    (`answered`: (idx, query, default response)) and, where `decode` =
+    (client, records) is given, decode to its record.  Prints stage times
+    and launches per query, and fails if a forced run launched a kernel it
+    must not, or missed one it must.  Returns the launches of each forced
+    run and those of its last query."""
+    from spiral_tpu_torch import kernels
+    from spiral_tpu_torch.server import fold
+
+    limit = fold.MXU_MAX_K3_BLOCKS
+    launches, per_query = {}, {}
+    for forced, max_blocks, must, must_not in FOLD_FORCED:
+        ftag = f"{tag} fold {forced}"
+        fold.MXU_MAX_K3_BLOCKS = max_blocks
+        try:
+            kernels.reset_launches()
+            for idx, q, want in answered:
+                before = dict(kernels.LAUNCHES)
+                resp, tm = server.process_query(q)
+                pq = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+                same = same_rows(resp, want)
+                ok = decode is None or np.array_equal(
+                    decode[0].decode(resp), decode[1][idx].astype(object))
+                stages = {k: round(v, 1) for k, v in vars(tm).items()}
+                print(f"{ftag} query idx={idx}: rows equal the default "
+                      f"server's={same}" +
+                      ("" if decode is None else f" correct={ok}") +
+                      f" server {tm.total_us / 1e3:.3f} ms (cuda events) "
+                      f"stages_us={stages} launches={pq} [{card}]",
+                      flush=True)
+                if not (same and ok):
+                    raise SystemExit(f"{ftag} query {idx}: rows equal to the "
+                                     f"default server's={same}, decodes={ok}")
+        finally:
+            fold.MXU_MAX_K3_BLOCKS = limit
+        launches[ftag], per_query[ftag] = dict(kernels.LAUNCHES), pq
+        if not all(launches[ftag][k] for k in must) or \
+                any(launches[ftag][k] for k in must_not):
+            raise SystemExit(f"{ftag}: launched {launches[ftag]}")
+    return launches, per_query
+
+
 def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
-             batch_path: tuple) -> tuple[dict, dict, dict]:
+             batch_path: tuple) -> tuple[dict, dict]:
     """End to end at a full-size preset on the card: a database from numpy
     seed `seed`, a seeded client and three queries, each decoded against
     its record; then a batch of BATCH queries (indices 0, total_n - 1 and
-    random ones), each decoded and equal to its single-query rows.
-    Returns the launch counts over the single run (database encode and
-    client setup included), which must be nonzero for every kernel of
-    `path`, those of the last query alone, and those of the batch, which
-    must be nonzero for every kernel of `batch_path`."""
+    random ones), each decoded and equal to its single-query rows; then,
+    for Spiral, the three queries with the fold forced to one engine
+    (run_fold_forced).  Returns ({path: launches}, {path: launches of its
+    last query}): the single run's launches count database encode and
+    client setup too and must be nonzero for every kernel of `path`, and
+    the batch's for every kernel of `batch_path`."""
     from spiral_tpu_torch import kernels
     from spiral_tpu_torch.params import preset
 
@@ -489,6 +694,7 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
 
     idxs = [0, params.total_n - 1, int(rng.integers(0, params.total_n))]
     db_bytes = pts.size * int(np.log2(params.p_db)) // 8
+    answered = []
     for idx in idxs:
         q = client.query(idx)
         torch.cuda.synchronize()
@@ -507,6 +713,7 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
         if not ok:
             raise SystemExit(f"{name} query {idx} decoded to the wrong "
                              f"record")
+        answered.append((idx, q, resp))
     launches = dict(kernels.LAUNCHES)
     print(f"{name} launches over the path: {launches}", flush=True)
     if not all(launches[k] for k in path):
@@ -533,15 +740,23 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
                              f"equal to its single query's={same}")
     print(f"{name} batch: all {len(qs)} answers decode to their records "
           f"and equal their single-query rows (indices {bidx})", flush=True)
-    return launches, per_query, batch
+    paths, per_q = {name: launches, f"{name} batch": batch}, \
+        {name: per_query}
+    if not pack:
+        forced, forced_q = run_fold_forced(name, server, answered, card,
+                                           decode=(client, pts))
+        paths.update(forced)
+        per_q.update(forced_q)
+    return paths, per_q
 
 
 def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
     """The implicit huge-database mode at a full-size preset: a random slab
     of at most 2 GiB streamed num_chunks times, one query, then a batch of
     BATCH queries that holds it; the batch's rows for that query must equal
-    the single run's.  Returns the launch counts of the single query and
-    of the batch."""
+    the single run's; then that query with the fold forced to one engine
+    (run_fold_forced).  Returns ({path: launches}, {path: launches of its
+    last query})."""
     from spiral_tpu_torch import kernels
     from spiral_tpu_torch.params import preset
     from spiral_tpu_torch.pir import SpiralClient, SpiralServer
@@ -554,7 +769,8 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     client = SpiralClient(params, seed=seed, device="cuda")
-    server = SpiralServer(params, db, client.setup())
+    pub = client.setup()
+    server = SpiralServer(params, db, pub)
     torch.cuda.synchronize()
     slab_bytes = db.slab.numel() * 4
     streamed = db.num_chunks * slab_bytes
@@ -597,7 +813,10 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
                          f"{bidx[0]} differ from its single run's")
     print(f"{name} implicit: the batch's rows for idx={bidx[0]} equal the "
           f"single run's", flush=True)
-    return single, batch
+    forced, forced_q = run_fold_forced(f"{name} implicit", server,
+                                       [(bidx[0], qs[0], resp)], card)
+    return ({f"{name} implicit": single, f"{name} implicit batch": batch,
+             **forced}, {f"{name} implicit": single, **forced_q})
 
 
 def main() -> int:
@@ -633,25 +852,28 @@ def main() -> int:
     checks = check_kernels(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    fold_rounds = compare_fold_rounds(torch.Generator(
+        device="cuda").manual_seed(args.seed))
+    probe = library_probe()
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = phase("3 kernel checks", t0)
     paths, per_query = {}, {}
-    check_tiny("tiny", args.seed, pack=False)
-    name = "spiral_20_256"
-    paths[name], per_query[name], paths[f"{name} batch"] = run_path(
-        name, args.seed, card, False, SPIRAL_PATH, SPIRAL_BATCH_PATH)
-    gc.collect()
-    torch.cuda.empty_cache()      # the Spiral database is freed here
-    t0 = phase("4 spiral", t0)
-    check_tiny("tiny_pack", args.seed, pack=True)
-    name = "spiralpack_20_256"
-    paths[name], per_query[name], paths[f"{name} batch"] = run_path(
-        name, args.seed, card, True, PACK_PATH, PACK_BATCH_PATH)
-    gc.collect()
-    torch.cuda.empty_cache()      # the pack database is freed here
-    t0 = phase("5 pack", t0)
-    name = "spiral_24_256"
-    paths[f"{name} implicit"], paths[f"{name} implicit batch"] = \
-        run_implicit(name, args.seed, card)
+    for phase_label, name, pack, path, batch_path in (
+            ("4 spiral", "spiral_20_256", False, SPIRAL_PATH,
+             SPIRAL_BATCH_PATH),
+            ("5 pack", "spiralpack_20_256", True, PACK_PATH,
+             PACK_BATCH_PATH)):
+        check_tiny("tiny_pack" if pack else "tiny", args.seed, pack=pack)
+        p, q = run_path(name, args.seed, card, pack, path, batch_path)
+        paths.update(p)
+        per_query.update(q)
+        gc.collect()
+        torch.cuda.empty_cache()      # the database is freed here
+        t0 = phase(phase_label, t0)
+    p, q = run_implicit("spiral_24_256", args.seed, card)
+    paths.update(p)
+    per_query.update(q)
     t0 = phase("6 implicit", t0)
 
     out = []
@@ -672,6 +894,11 @@ def main() -> int:
             "launches_per_query": {k: v[kernel]
                                    for k, v in per_query.items()},
             "cases": recs})
+        if kernel in KERNEL_NOTES:
+            out[-1]["note"] = KERNEL_NOTES[kernel]
+    fc = next(r for r in out if r["name"] == "fold_contract")
+    fc["library_probe"] = probe      # why library_ms is null
+    fc["fold_rounds_k3_vs_k8b"] = fold_rounds
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

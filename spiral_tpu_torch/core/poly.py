@@ -57,21 +57,22 @@ def matmul_raw(a, b):
 
 
 @lru_cache(maxsize=None)
-def _automorph_tables(d: int, t: int):
-    """Gather indices and negation mask for x -> x^t (poly.py:126-135)."""
+def _automorph_tables(d: int, t: int, device: str):
+    """Gather indices and negation mask for x -> x^t (poly.py:126-135), on
+    `device`: made and copied there once per (d, t, device)."""
     i = np.arange(d)
     src = np.zeros(d, dtype=np.int64)
     neg = np.zeros(d, dtype=bool)
     src[(i * t) % d] = i
     neg[(i * t) % d] = ((i * t) // d) % 2 == 1
-    return src, neg
+    return torch.from_numpy(src).to(device), torch.from_numpy(neg).to(device)
 
 
 def automorph_raw(a, t: int):
     """tau_t in the coefficient domain: out[(i*t) mod d] = +/- a[i]."""
-    src, neg = _automorph_tables(a.shape[-1], t)
-    v = a[..., torch.from_numpy(src).to(a.device)]
-    return torch.where(torch.from_numpy(neg).to(a.device), neg_raw(v), v)
+    src, neg = _automorph_tables(a.shape[-1], t, str(a.device))
+    v = a[..., src]
+    return torch.where(neg, neg_raw(v), v)
 
 
 def monomial(coef: int, idx: int, d: int, device) -> torch.Tensor:

@@ -14,10 +14,25 @@
 // (digits -> twist -> radix-2 NTT), multiply-accumulates each slot against W
 // read at the slot's mxu index into two u64 accumulators per slot, then
 // transforms row 1 of c the same way and writes cv + acc in mxu order.  The
-// automorphism stays a gather outside (server/expand.py).
+// automorphism that makes c is K8a below, a launch of its own.
 //
 // Bound on the H100: m + 1 NTTs of d = 2048 per block, each 11
 // __syncthreads() stages; early rounds run only a few blocks.
+//
+// K8a: the inverse NTT and tau_t of one expansion round in one launch.
+//
+// For poly n (the flattened (..., 2) index, limb n & 1) in the NTT domain
+// (mxu order): c = INTT(x[n]), then out[(i*t) mod d] = (-1)^((i*t)/d) c[i].
+// Replaces the Pallas kernel spiral_tpu/server/expand_pallas.py _auto_call
+// (kernel _make_auto_kernel, SPIRAL_AUTO=matmul), which ran tau_t as an
+// int8 +/-1 permutation matmul over four 7-bit limb planes because Mosaic
+// has no lane gather.  Here one block of d/2 threads per (poly, limb) runs
+// K1's inverse network in shared memory and scatters each untwisted
+// coefficient to its image on the store: t is odd, so i -> i*t mod d is a
+// bijection, and the index and sign come from i*t, with no table and no
+// matmul.  Bound on the H100: as K1's inverse (11 __syncthreads() stages
+// of 64-bit Barrett products per poly), with one launch per round instead
+// of K1, two index-table copies and three elementwise launches.
 #include "ntt.cuh"
 
 using namespace spiral;
@@ -80,6 +95,40 @@ expand_keyswitch_kernel(const uint32_t* __restrict__ cv,
       out[idx] = md.add(cv[idx], md.reduce(acc[r][e]));
     }
   }
+}
+
+__global__ void inv_ntt_automorph_kernel(const uint32_t* __restrict__ in,
+                                         uint32_t* __restrict__ out,
+                                         const uint32_t* __restrict__ tab,
+                                         int d, int logd, int t) {
+  extern __shared__ uint32_t a[];
+  const int poly = blockIdx.x, li = poly & 1;
+  const Mod md = mod_of(li);
+  const uint32_t* x = in + (size_t)poly * d;
+  uint32_t* y = out + (size_t)poly * d;
+  const uint32_t* pos_of_slot = tab + 8 * d;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) a[pos_of_slot[j]] = x[j];
+  __syncthreads();
+  ntt_dit_inv(a, tab + (li * 4 + 3) * d, md, d, logd);
+  const uint32_t* untwist = tab + (li * 4 + 1) * d;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    const uint32_t v = md.mul(a[i], untwist[i]);
+    const long long it = (long long)i * t;
+    y[it & (d - 1)] = ((it >> logd) & 1) && v ? md.p - v : v;
+  }
+}
+
+// K8a: in, out (n_polys = N*2, d), in NTT, out coefficient domain; t odd.
+extern "C" int spiral_inv_ntt_automorph(const void* in, void* out,
+                                        const void* tab, int n_polys, int d,
+                                        int t, void* stream) {
+  if (d < 64 || d > 2048 || (d & (d - 1)) || !(t & 1) || n_polys < 1)
+    return (int)cudaErrorInvalidValue;
+  inv_ntt_automorph_kernel<<<n_polys, d / 2, d * sizeof(uint32_t),
+                             (cudaStream_t)stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, (const uint32_t*)tab, d,
+      log2_exact(d), t);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int spiral_expand_keyswitch(const void* cv, const void* ca,

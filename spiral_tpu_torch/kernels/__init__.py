@@ -27,13 +27,15 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("ntt.cu", "firstdim.cu", "fold.cu", "expand.cu", "pack.cu")
+SOURCES = ("ntt.cu", "firstdim.cu", "fold.cu", "expand.cu", "pack.cu",
+           "fold_mxu.cu")
 HEADERS = ("common.cuh", "ntt.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"ntt": 0, "firstdim": 0, "fold": 0, "expand": 0,
-            "fold_pack": 0, "pack": 0, "fold_batch": 0, "fold_pack_batch": 0}
+            "fold_pack": 0, "pack": 0, "fold_batch": 0, "fold_pack_batch": 0,
+            "auto": 0, "fold_ntt": 0, "fold_contract": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -47,6 +49,10 @@ _SIGNATURES = {
     "spiral_fold_pack_round_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "spiral_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "spiral_expand_keyswitch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "spiral_inv_ntt_automorph": (_P, _P, _P, _I, _I, _I, _P),
+    "spiral_fold_ntt": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "spiral_fold_contract_smem": (_I, _I),
+    "spiral_fold_contract": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -3,11 +3,16 @@ spiral_tpu/server/expand.py).
 
 Round r maps 2^r cts to 2^{r+1}: cv[num_in + i] = x^{-2^r} cv[i], then
 cv[i] += KeySwitch_W(tau_t(cv[i])), t = d/2^r + 1, with W_left and m_exp
-digits on even slots and W_right and m_exp_right on odd ones.  tau_t is
-a coefficient-domain gather after the inverse NTT (K1).  The key switch
-is kernel K4 (csrc/expand.cu) on CUDA tensors, replacing the Pallas
+digits on even slots and W_right and m_exp_right on odd ones.  The key
+switch is kernel K4 (csrc/expand.cu) on CUDA tensors, replacing the Pallas
 key-switch (spiral_tpu/server/expand_pallas.py _keyswitch_call); on the
 CPU it runs ``keyswitch_plain``.
+
+tau_t(inverse NTT) is ``inv_ntt_automorph``, one launch of kernel K8a
+(csrc/expand.cu) per round, replacing the Pallas kernel expand_pallas.py
+_auto_call, which the JAX package runs under SPIRAL_AUTO=matmul; on the
+CPU it runs ``inv_ntt_automorph_plain``: the inverse NTT, then the
+coefficient-domain gather ``automorph_raw``.
 """
 from __future__ import annotations
 
@@ -19,6 +24,34 @@ from ..arith import ntt
 from ..core.gadget import gadget_invert_raw
 from ..core.poly import add_raw, automorph_raw, matmul_raw, monomial, \
     scalar_mul_raw
+
+
+def inv_ntt_automorph_plain(x: torch.Tensor, t: int) -> torch.Tensor:
+    """x (..., 2, d) NTT -> tau_t(inverse(x)) (..., 2, d) coeff."""
+    return automorph_raw(ntt.inverse_plain(x), t)
+
+
+def inv_ntt_automorph(x: torch.Tensor, t: int) -> torch.Tensor:
+    """inv_ntt_automorph_plain, as one launch of K8a on a CUDA tensor (the
+    JAX expand_pallas.py inv_ntt_automorph under SPIRAL_AUTO=matmul)."""
+    if kernels.on_cpu(x):
+        return inv_ntt_automorph_plain(x, t)
+    x = x.contiguous()
+    d = x.shape[-1]
+    kernels.require(x, x.shape, "auto input")
+    if x.shape[-2] != 2 or d & (d - 1) or not 64 <= d <= 2048 or t % 2 == 0:
+        raise ValueError(f"auto kernel takes (..., 2, d), 64 <= d <= 2048 a "
+                         f"power of two, and an odd t; got "
+                         f"{tuple(x.shape)}, t {t}")
+    out = torch.empty_like(x)
+    n_polys = x.numel() // d
+    if n_polys:
+        kernels.check(kernels.lib().spiral_inv_ntt_automorph(
+            x.data_ptr(), out.data_ptr(),
+            ntt.kernel_table(d, x.device).data_ptr(), n_polys, d, t,
+            kernels.stream()), "spiral_inv_ntt_automorph")
+        kernels.LAUNCHES["auto"] += 1
+    return out
 
 
 def keyswitch_plain(cv: torch.Tensor, c_auto: torch.Tensor, W: torch.Tensor,
@@ -60,9 +93,8 @@ def coefficient_expansion(cv0: torch.Tensor, g: int, W_left: list,
     batch (B, 2, 1, 2, d) into (B, 2^g, 2, 1, 2, d).  With stopround > 0,
     odd slots stop after round `stopround`, where only odd slot i <=
     max_bits_to_gen_right is updated (expand.py:131-167).  The batch shares
-    the keys W, so each round makes one inverse NTT, one gather and one K4
-    launch per side for all B queries (what jax.vmap of the JAX expansion
-    computes)."""
+    the keys W, so each round makes one K8a launch and one K4 launch per
+    side for all B queries (what jax.vmap of the JAX expansion computes)."""
     single = cv0.dim() == 4
     d = params.poly_len
     cv = cv0[:, None] if not single else cv0[None, None]   # (B, 1, ...)
@@ -81,7 +113,7 @@ def coefficient_expansion(cv0: torch.Tensor, g: int, W_left: list,
         evens, odds = cv[:, 0::2].contiguous(), cv[:, 1::2].contiguous()
         odd_live = stopround == 0 or r <= stopround
         todo = cv if odd_live else evens
-        c_auto = automorph_raw(ntt.inverse(todo), t)
+        c_auto = inv_ntt_automorph(todo, t)
         if odd_live:
             c_even, c_odd = c_auto[:, 0::2], c_auto[:, 1::2]
         else:

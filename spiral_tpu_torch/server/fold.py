@@ -19,6 +19,24 @@ kernel with each output ct reading its own query's q block, which replaces
 the Pallas batched round (fold_pallas.py _fold_round_call_batch, through
 fold_rounds_fused_batch and fold_pack_rounds_fused_batch).  The plain
 versions take the leading query axis as it is.
+
+The single-query Spiral fold picks each round's kernels from the round's
+shape (``round_uses_mxu``): K3, or the counterpart of the JAX
+SPIRAL_FOLD=mxu path (fold_pallas.py fold_rounds_mxu), three launches:
+  ``fold_ntt``: kernel K8b-1 (csrc/fold_mxu.cu), replacing the Pallas
+    _fold_ntt_call, writes the signed digits of every ct pair after the
+    forward NTT, G (2 li, 2 s, t_gsw, m_out, n1*n2, d) in mxu order;
+  ``fold_contract``: kernel K8b-2, replacing JAX's XLA contraction
+    _fold_contract_mxu with its prescale _fold_qpre, contracts G with the
+    round's q on the int8 tensor cores, slot by slot, over 7-bit limbs;
+  ``ntt.inverse`` (K1).
+The TPU forms 7-bit digits with an int8 bias, because its NTT is an int8
+matmul, and undoes it with a correction term (fold_pallas.py
+_fold_bias_corr); K8b-1 transforms exact signed-digit residues, as K3
+does, so G carries no bias and the contraction needs no correction.  The
+round's output equals K3's, and JAX's, bit for bit.  On the CPU the three
+run ``fold_ntt_plain``, ``fold_contract_plain`` (the same 7-bit limb
+scheme in int64) and the plain inverse NTT.
 """
 from __future__ import annotations
 
@@ -27,6 +45,7 @@ import torch
 from ..params import Params
 from .. import kernels
 from ..arith import ntt
+from ..arith.mod import MODS, p_col
 from ..core.gadget import gadget_invert_raw, gadget_invert_signed_raw
 from ..core.poly import add_raw, matmul_raw
 
@@ -71,17 +90,150 @@ def fold_round(cts: torch.Tensor, q_neg: torch.Tensor, q_pos: torch.Tensor,
     return out
 
 
+# limbs of the mxu contraction: residues < 2^28 in four 7-bit limbs
+LIMB_BITS, N_LIMBS = 7, 4
+# K3 runs one block per (output ct, column, limb), each through 2*n1*t_gsw
+# digit NTTs in sequence, so a round with few outputs leaves most of the
+# card's SMs idle; K8b-1 spreads the same NTTs over 2*n1 times as many
+# blocks of t_gsw NTTs each.  A round runs K8b when K3 would run at most
+# this many blocks: the crossover of the per-round times of both on an
+# H100 (PERF.md).  Tests set it to 0 (K3 in every round) or to a large
+# count (K8b in every round).
+MXU_MAX_K3_BLOCKS = 64
+
+
+def fold_ntt_plain(cts_pairs: torch.Tensor, t_gsw: int) -> torch.Tensor:
+    """cts_pairs (m_out, 2, n1, n2, 2, d) coeff -> G (2 li, 2 s, t_gsw,
+    m_out, n1*n2, d) NTT: G[li, s, k, mo, jn1*n2 + c] = NTT(digit k of
+    cts_pairs[mo, s, jn1, c]) (the JAX _fold_ntt_call's layout)."""
+    m_out, _, n1, n2, _, d = cts_pairs.shape
+    g = ntt.forward_plain(gadget_invert_signed_raw(cts_pairs, t_gsw, n1))
+    return g.reshape(m_out, 2, t_gsw, n1, n2, 2, d).permute(
+        5, 1, 2, 0, 3, 4, 6).reshape(2, 2, t_gsw, m_out, n1 * n2, d)
+
+
+def fold_ntt(cts_pairs: torch.Tensor, t_gsw: int) -> torch.Tensor:
+    if kernels.on_cpu(cts_pairs):
+        return fold_ntt_plain(cts_pairs, t_gsw)
+    m_out, _, n1, n2, _, d = cts_pairs.shape
+    kernels.require(cts_pairs, (m_out, 2, n1, n2, 2, d), "fold_ntt cts")
+    if not 64 <= d <= 2048 or d & (d - 1) or not 2 <= t_gsw <= 56:
+        raise ValueError(f"fold_ntt kernel takes 64 <= d <= 2048 and 2 <= "
+                         f"t_gsw <= 56; got {tuple(cts_pairs.shape)}, t_gsw "
+                         f"{t_gsw}")
+    G = torch.empty((2, 2, t_gsw, m_out, n1 * n2, d), dtype=torch.int32,
+                    device=cts_pairs.device)
+    kernels.check(kernels.lib().spiral_fold_ntt(
+        cts_pairs.data_ptr(), G.data_ptr(),
+        ntt.kernel_table(d, cts_pairs.device).data_ptr(), m_out, n1, n2,
+        t_gsw, d, kernels.stream()), "spiral_fold_ntt")
+    kernels.LAUNCHES["fold_ntt"] += 1
+    return G
+
+
+def _limbs(x: torch.Tensor) -> list:
+    return [(x >> (LIMB_BITS * j)) & ((1 << LIMB_BITS) - 1)
+            for j in range(N_LIMBS)]
+
+
+def fold_contract_limb_sums(G: torch.Tensor, q_neg: torch.Tensor,
+                            q_pos: torch.Tensor, t_gsw: int) -> torch.Tensor:
+    """The contraction's int32 partial sums, in int64: G (2 li, 2 s, t_gsw,
+    m_out, n1*n2, d) and q_neg/q_pos (n1, t_gsw*n1, 2, d) NTT -> o (4 i,
+    2 li, m_out, n1 r, n2 c, d) with
+        o[i] = sum_{s, k, jn1, j} limb_i((2^{7j} q_s[r, k*n1 + jn1]) mod p)
+                                  * limb_j(G[s, k, mo, jn1*n2 + c]),
+    JAX's _fold_qpre prescale and _fold_contract_mxu sums.  Every term is
+    at most 127^2 and there are 2*t_gsw*n1*4 of them."""
+    _, _, _, m_out, P, d = G.shape
+    n1 = q_neg.shape[0]
+    n2 = P // n1
+    p = p_col(G.device)                                       # (li, 1)
+    q = torch.stack([q_neg, q_pos]).long().reshape(2, n1, t_gsw, n1, 2, d)
+    # (j, s, r, k, jn1, li, d): (2^{7j} q) mod p, then its i-limbs
+    pw = torch.tensor([[(1 << (LIMB_BITS * j)) % m for m in MODS]
+                       for j in range(N_LIMBS)], device=G.device)
+    qj = q[None] * pw[:, None, None, None, None, :, None] % p
+    qi = torch.stack(_limbs(qj))                  # (i, j, s, r, k, jn1, li, d)
+    G7 = G.reshape(2, 2, t_gsw, m_out, n1, n2, d)
+    o = torch.zeros((N_LIMBS, 2, m_out, n1, n2, d), dtype=torch.int64,
+                    device=G.device)
+    for s in range(2):
+        for k in range(t_gsw):
+            for jn1 in range(n1):
+                gl = _limbs(G7[:, s, k, :, jn1].long())    # j: (li, mo, c, d)
+                for j in range(N_LIMBS):
+                    a = qi[:, j, s, :, k, jn1].permute(0, 2, 1, 3)  # i li r d
+                    o += a[:, :, None, :, None] * gl[j][None, :, :, None]
+    return o
+
+
+def fold_contract_plain(G: torch.Tensor, q_neg: torch.Tensor,
+                        q_pos: torch.Tensor, t_gsw: int) -> torch.Tensor:
+    """-> (m_out, n1, n2, 2, d) NTT: the limb sums recombined mod p as in
+    _fold_contract_mxu, (o0 + 2^7 o1) + 2^14 (o2 + 2^7 o3)."""
+    o = fold_contract_limb_sums(G, q_neg, q_pos, t_gsw)
+    p = p_col(G.device)[:, :, None, None, None]                 # li ...
+    r01 = (o[0] + (o[1] << LIMB_BITS)) % p
+    r23 = (o[2] + (o[3] << LIMB_BITS)) % p
+    v = (r01 + (r23 << 2 * LIMB_BITS) % p) % p           # (li, mo, r, c, d)
+    return v.permute(1, 2, 3, 0, 4).to(torch.int32)
+
+
+def fold_contract(G: torch.Tensor, q_neg: torch.Tensor, q_pos: torch.Tensor,
+                  t_gsw: int) -> torch.Tensor:
+    if kernels.on_cpu(G, q_neg, q_pos):
+        return fold_contract_plain(G, q_neg, q_pos, t_gsw)
+    _, _, _, m_out, P, d = G.shape
+    n1 = q_neg.shape[0]
+    kernels.require(G, (2, 2, t_gsw, m_out, P, d), "fold_contract G")
+    kernels.require(q_neg, (n1, t_gsw * n1, 2, d), "fold_contract q_neg")
+    kernels.require(q_pos, (n1, t_gsw * n1, 2, d), "fold_contract q_pos")
+    lib = kernels.lib()
+    if P % n1 or d % 8 or not 1 <= n1 <= 4 or t_gsw < 2 or \
+            not lib.spiral_fold_contract_smem(n1, t_gsw):
+        raise ValueError(f"fold_contract kernel takes n1 <= 4 rows, d a "
+                         f"multiple of 8 and a t_gsw whose tiles fit shared "
+                         f"memory; got G {tuple(G.shape)}, n1 {n1}")
+    out = torch.empty((m_out, n1, P // n1, 2, d), dtype=torch.int32,
+                      device=G.device)
+    kernels.check(lib.spiral_fold_contract(
+        G.data_ptr(), q_neg.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        m_out, n1, P // n1, t_gsw, d, kernels.stream()),
+        "spiral_fold_contract")
+    kernels.LAUNCHES["fold_contract"] += 1
+    return out
+
+
+def fold_round_mxu(cts: torch.Tensor, q_neg: torch.Tensor,
+                   q_pos: torch.Tensor, t_gsw: int) -> torch.Tensor:
+    """fold_round through fold_ntt, fold_contract and the inverse NTT (a
+    round of JAX fold_pallas.py fold_rounds_mxu); the same output."""
+    G = fold_ntt(cts.unflatten(0, (-1, 2)).contiguous(), t_gsw)
+    v = fold_contract(G, q_neg, q_pos, t_gsw)
+    del G     # the round's largest tensor: 2.2 GB at t_gsw 11, round 1
+    return ntt.inverse(v)
+
+
+def round_uses_mxu(m_out: int, n2: int) -> bool:
+    """Whether a round with m_out output cts of n2 columns runs K8b."""
+    return 2 * m_out * n2 <= MXU_MAX_K3_BLOCKS
+
+
 def fold_rounds(cts_coeff: torch.Tensor, q_pos: torch.Tensor,
                 q_neg: torch.Tensor, params: Params, start_round: int = 0,
                 num_rounds: int | None = None) -> torch.Tensor:
     """Run `num_rounds` rounds (all remaining if None) from global round
     `start_round`, which selects the q_pos/q_neg slot.  cts_coeff
-    (m, n1, n2, 2, d) coeff; q_pos/q_neg (nu_2, n1, m2, 2, d) NTT."""
+    (m, n1, n2, 2, d) coeff; q_pos/q_neg (nu_2, n1, m2, 2, d) NTT.  Each
+    round is K3 or, where round_uses_mxu, K8b: the same output."""
     rounds = cts_coeff.shape[0].bit_length() - 1
     rounds = rounds if num_rounds is None else num_rounds
     for r in range(start_round, start_round + rounds):
-        cts_coeff = fold_round(cts_coeff.contiguous(), q_neg[r].contiguous(),
-                               q_pos[r].contiguous(), params.t_gsw)
+        m_out, n2 = cts_coeff.shape[0] // 2, cts_coeff.shape[2]
+        step = fold_round_mxu if round_uses_mxu(m_out, n2) else fold_round
+        cts_coeff = step(cts_coeff.contiguous(), q_neg[r].contiguous(),
+                         q_pos[r].contiguous(), params.t_gsw)
     return cts_coeff
 
 

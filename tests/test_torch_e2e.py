@@ -16,6 +16,7 @@ from spiral_tpu_torch.crypto.decode import decode_response
 from spiral_tpu_torch.crypto.query import reconstruct_cts
 from spiral_tpu_torch.pir import SpiralClient, SpiralServer, run_pir
 from spiral_tpu_torch.server import db as torch_db
+from spiral_tpu_torch.server import fold
 from spiral_tpu_torch.server.db import encode_db, random_db
 
 # stopround > 0 (5 of g = 6), t_gsw = 9 (7-bit signed digits), m_exp_right
@@ -24,17 +25,43 @@ STOP_CFG = dict(nu_1=5, nu_2=2, p_db=256, q_prime_bits=20, t_gsw=9,
                 t_conv=4, t_exp=8, t_exp_right=56, poly_len=128)
 
 
-@pytest.mark.parametrize("cfg", ["tiny", "stopround"])
-def test_torch_server_answers_jax_client(cfg):
-    p = preset("tiny") if cfg == "tiny" else Params(**STOP_CFG)
-    tp = tparams.preset("tiny") if cfg == "tiny" else \
-        tparams.Params(**STOP_CFG)
-    assert (p.stopround > 0) == (cfg == "stopround")
-    client = jpir.SpiralClient(p, seed=7)
-    pub = client.setup()
-    pts = j_random_db(p, np.random.default_rng(2))
-    jdb = j_encode_db(pts, p)
-    jserver = jpir.SpiralServer(p, jdb, pub)
+# the fold's engine per round: the default rule (at these sizes every
+# round runs K8b, the JAX SPIRAL_FOLD=mxu path), and K3 in every round
+FOLD_LIMITS = {"default": fold.MXU_MAX_K3_BLOCKS, "k3": 0}
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """cfg -> (JAX params, port params, client, pub, pts, jdb, query, the
+    JAX server's response), each made once for the module."""
+    runs = {}
+
+    def get(cfg):
+        if cfg not in runs:
+            p = preset("tiny") if cfg == "tiny" else Params(**STOP_CFG)
+            tp = tparams.preset("tiny") if cfg == "tiny" else \
+                tparams.Params(**STOP_CFG)
+            assert (p.stopround > 0) == (cfg == "stopround")
+            client = jpir.SpiralClient(p, seed=7)
+            pub = client.setup()
+            pts = j_random_db(p, np.random.default_rng(2))
+            jdb = j_encode_db(pts, p)
+            q = client.query(p.total_n - 1)
+            want, _ = jpir.SpiralServer(p, jdb, pub).process_query(q)
+            runs[cfg] = (p, tp, client, pub, pts, jdb, q, want)
+        return runs[cfg]
+
+    return get
+
+
+@pytest.mark.parametrize("cfg, engines", [
+    ("tiny", "default"), ("stopround", "default"),
+    ("tiny", "k3"), ("stopround", "k3")],
+    ids=["tiny", "stopround", "tiny-k3", "stopround-k3"])
+def test_torch_server_answers_jax_client(jax_run, monkeypatch, cfg,
+                                         engines):
+    p, tp, client, pub, pts, jdb, q, want = jax_run(cfg)
+    monkeypatch.setattr(fold, "MXU_MAX_K3_BLOCKS", FOLD_LIMITS[engines])
     tserver = SpiralServer(
         tp, interop.encoded_db(np.asarray(jdb.data), tp, "cpu"),
         interop.public_params([np.asarray(w.data) for w in pub.W_exp_left],
@@ -42,8 +69,6 @@ def test_torch_server_answers_jax_client(cfg):
                               np.asarray(pub.W_conv.data),
                               np.asarray(pub.V.data), "cpu"))
     idx = p.total_n - 1
-    q = client.query(idx)
-    want, _ = jserver.process_query(q)
     got, _ = tserver.process_query(interop.query(
         q.seed, np.asarray(q.packed_b), "cpu"))
     for a, b in zip(interop.response_rows(got), interop.response_rows(want)):

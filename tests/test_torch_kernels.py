@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K7 against their plain PyTorch versions on the card,
+"""CUDA kernels K1-K8b against their plain PyTorch versions on the card,
 bit for bit.  Every test is marked `gpu` and takes the `cuda` fixture, which
 skips it on a machine without a CUDA device.  On the card (no jax there, so skip the suite's
 conftest, which imports it):
@@ -132,3 +132,50 @@ def test_pack_batch_kernel(cuda):
     v_W = _residues(cuda, (out_n, out_n + 1, m_conv, d))
     _same(pack.pack_ciphertexts(cts, v_W),
           pack.pack_ciphertexts_plain(cts, v_W), "pack")
+
+
+# K8a at round 0 (t = d + 1) and round 8 of the expansion (the last round
+# a d = 256 ring has is 7)
+@pytest.mark.parametrize("d", [256, 2048])
+@pytest.mark.parametrize("r", [0, 8])
+def test_auto_kernel(cuda, d, r):
+    t = (d >> min(r, d.bit_length() - 2)) + 1
+    x = _residues(cuda, (5, 2, 1, d))
+    _same(expand.inv_ntt_automorph(x, t),
+          expand.inv_ntt_automorph_plain(x, t), "auto")
+
+
+@pytest.mark.parametrize("d", [256, 2048])
+@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+def test_fold_ntt_kernel(cuda, t_gsw, d):
+    pairs = _residues(cuda, (3, 2, 3, 2, d))
+    _same(fold.fold_ntt(pairs, t_gsw), fold.fold_ntt_plain(pairs, t_gsw),
+          "fold_ntt")
+
+
+# m_out 37: 74 columns, two column blocks of the kernel, the second ragged
+@pytest.mark.parametrize("d, m_out", [(256, 37), (2048, 5)])
+@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+def test_fold_contract_kernel(cuda, t_gsw, d, m_out):
+    G = _residues(cuda, (2, t_gsw, m_out, 6, d)).permute(
+        4, 0, 1, 2, 3, 5).contiguous()
+    qn, qp = (_residues(cuda, (3, 3 * t_gsw, d)) for _ in range(2))
+    _same(fold.fold_contract(G, qn, qp, t_gsw),
+          fold.fold_contract_plain(G, qn, qp, t_gsw), "fold_contract")
+
+
+@pytest.mark.parametrize("t_gsw", [9, 11])
+def test_fold_mxu_rounds_kernels(cuda, monkeypatch, t_gsw):
+    """A whole mxu fold (K8b-1, K8b-2, K1 a round) equals K3's."""
+    from spiral_tpu_torch.params import Params
+    p = Params(nu_1=2, nu_2=3, p_db=256, t_gsw=t_gsw, t_conv=4, t_exp=8,
+               t_exp_right=8)
+    cts = _residues(cuda, (8, 3, 2, p.poly_len))
+    qp, qn = (_residues(cuda, (3, 3, 3 * t_gsw, p.poly_len))
+              for _ in range(2))
+    monkeypatch.setattr(fold, "MXU_MAX_K3_BLOCKS", 1 << 30)
+    got = fold.fold_rounds(cts, qp, qn, p)
+    monkeypatch.setattr(fold, "MXU_MAX_K3_BLOCKS", 0)
+    _same(got, fold.fold_rounds(cts, qp, qn, p), "fold_ntt", 3)
+    assert kernels.LAUNCHES["fold_contract"] == 3
+    assert kernels.LAUNCHES["fold"] == 3
