@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--kernels-only]
 
 Phases, each printing its own lines and its wall time:
   1. the card: torch.cuda.is_available() (exit 1 without it) and
@@ -18,10 +18,15 @@ Phases, each printing its own lines and its wall time:
      new digit widths; K8a at the first and the largest expansion round
      of spiral_20_256, one query's and a batch's, K8b's two kernels at
      fold rounds 1 (t_gsw 9 and 8) and the last, and at spiral_24_256's
-     round 1 (t_gsw 11); then every fold round of spiral_20_256 (t_gsw 9)
-     and spiral_24_256 (t_gsw 11), and round 1 at t_gsw 8, as K3 and as a
-     K8b round (K8b-1, K8b-2, K1) on the same inputs, both times on one
-     line with the engine the fold picks for it;
+     round 1 (t_gsw 11); K3, K4 and K6 at the edges of their clusters
+     (one ct, m_out 1 and 5, t_gsw 8, 9 and 11); then every fold round of
+     spiral_20_256 (t_gsw 9) and spiral_24_256 (t_gsw 11), and round 1 at
+     t_gsw 8, as K3 and as a K8b round (K8b-1, K8b-2, K1) on the same
+     inputs, both times on one line with the engine the fold picks for it;
+  3b. K4 at each of the expansion's launches of one spiral_20_256 query
+     (16) and one spiral_24_256 query (18), each held bit-equal to its
+     plain version and timed, with the sum per query (--kernels-only
+     stops here and prints the phase 3 and 3b JSON);
   4. Spiral: a tiny flow on the card against the plain CPU flow (equal
      response rows), then end to end at spiral_20_256: a seeded client, a
      2^20 x 256 B database from a numpy seed encoded on the card, and
@@ -101,8 +106,9 @@ KERNEL_NOTES = {
                      "the JAX mxu fold's contraction outside its Pallas "
                      "kernel _fold_ntt_call",
 }
-SPIRAL_PATH = ("ntt", "firstdim", "fold", "expand", "auto", "fold_ntt",
-               "fold_contract")
+# the default fold runs K3 in every round (fold.MXU_MAX_K3_BLOCKS = 0);
+# K8b-1 and K8b-2 run in the forced runs (FOLD_FORCED) and phase 3
+SPIRAL_PATH = ("ntt", "firstdim", "fold", "expand", "auto")
 PACK_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack", "pack")
 SPIRAL_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_batch")
 PACK_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack_batch",
@@ -182,6 +188,12 @@ def fold_products(m_out: int, n1: int, n2: int, t: int, d: int) -> int:
     return m_out * n2 * 2 * per
 
 
+def expand_products(N: int, m: int, d: int) -> int:
+    """K4 launch: per (ct, limb) m digit NTTs, each slot multiplied into
+    two rows, and the NTT of row 1."""
+    return N * 2 * (m * (ntt_products(d) + 2 * d) + ntt_products(d))
+
+
 def check_kernels(seed: int) -> dict:
     """Phase 3: kernel vs plain version on the card, at the main paths'
     shapes.  Returns {kernel: {case: record}} for the JSON line; each
@@ -227,12 +239,12 @@ def check_kernels(seed: int) -> dict:
         cv = rand_residues(gen, (N, 2, 1, d))
         ca = rand_residues(gen, (N, 2, 1, d))
         W = rand_residues(gen, (2, mk, d))
-        prods = N * 2 * (mk * (ntt_products(d) + 2 * d) + ntt_products(d))
         cases.append((f"expand_m{mk}", "expand",
                       lambda cv=cv, ca=ca, W=W, mk=mk: expand.keyswitch(
                           cv, ca, W, mk),
                       lambda cv=cv, ca=ca, W=W, mk=mk: expand.keyswitch_plain(
-                          cv, ca, W, mk), 5, [cv, ca, W], prods))
+                          cv, ca, W, mk), 5, [cv, ca, W],
+                      expand_products(N, mk, d)))
     # K6, the first pack fold round (16 trials x 128 cts -> 1,024 outputs),
     # both digit widths
     pp = preset("spiralpack_20_256")
@@ -269,12 +281,12 @@ def check_kernels(seed: int) -> dict:
         cv = rand_residues(gen, (N, 2, 1, d))
         ca = rand_residues(gen, (N, 2, 1, d))
         W = rand_residues(gen, (2, mk, d))
-        prods = N * 2 * (mk * (ntt_products(d) + 2 * d) + ntt_products(d))
         cases.append((f"expand_m{mk}_pack", "expand",
                       lambda cv=cv, ca=ca, W=W, mk=mk: expand.keyswitch(
                           cv, ca, W, mk),
                       lambda cv=cv, ca=ca, W=W, mk=mk: expand.keyswitch_plain(
-                          cv, ca, W, mk), 5, [cv, ca, W], prods))
+                          cv, ca, W, mk), 5, [cv, ca, W],
+                      expand_products(N, mk, d)))
     # K2 at the pack path's shape: n1 = 2 rows, K = dim0, m = T*num_per
     Kp, mp = pp.dim0, T * pp.num_per
     pdb = rand_residues(gen, (d, Kp, mp), 0)
@@ -296,6 +308,7 @@ def check_kernels(seed: int) -> dict:
 
     cases += batch_cases(gen)
     cases += mxu_cases(gen)
+    cases += edge_cases(gen)
 
     results = {}
     for name, kernel, run, plain, reps, inputs, prods, *macs in cases:
@@ -429,8 +442,7 @@ def batch_cases(gen) -> list:
     cases.append((f"expand_m{mk}", "expand",
                   lambda: expand.keyswitch(cv, ca, W, mk),
                   lambda: expand.keyswitch_plain(cv, ca, W, mk), 5,
-                  [cv, ca, W],
-                  N * 2 * (mk * (ntt_products(d) + 2 * d) + ntt_products(d))))
+                  [cv, ca, W], expand_products(N, mk, d)))
     return cases
 
 
@@ -479,6 +491,99 @@ def mxu_cases(gen) -> list:
                           G, qn, qp, t), 5, [G, qn, qp], 0,
                       2 * d * (4 * n1) * (8 * t * n1) * (m_out * n2)))
     return cases
+
+
+def edge_cases(gen) -> list:
+    """Phase 3 cases at the edges of the cluster designs of K3, K4 and K6:
+    K4 at one ct with m 56 (a lone cluster); K3 and K6 at m_out 1 (one
+    cluster per column and limb) and m_out 5, each at t_gsw 8, 9 and 11
+    (an odd digit count leaves a block's last step one poly short)."""
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.server import expand, fold
+
+    sp = preset("spiral_20_256")
+    d, n1, n2, mk = sp.poly_len, sp.n1, sp.n2, sp.m_exp_right
+    cv, ca = (rand_residues(gen, (1, 2, 1, d)) for _ in range(2))
+    W = rand_residues(gen, (2, mk, d))
+    cases = [(f"expand_m{mk}_n1", "expand",
+              lambda: expand.keyswitch(cv, ca, W, mk),
+              lambda: expand.keyswitch_plain(cv, ca, W, mk), 20, [cv, ca, W],
+              expand_products(1, mk, d))]
+    for t in (8, 9, 11):
+        for m_out in (1, 5):
+            cts = rand_residues(gen, (2 * m_out, n1, n2, d))
+            qn, qp = (rand_residues(gen, (n1, t * n1, d)) for _ in range(2))
+            cases.append((f"fold_t{t}_m{m_out}", "fold",
+                          lambda cts=cts, qn=qn, qp=qp, t=t: fold.fold_round(
+                              cts, qn, qp, t),
+                          lambda cts=cts, qn=qn, qp=qp, t=t:
+                          fold.fold_round_plain(cts, qn, qp, t), 20,
+                          [cts, qn, qp], fold_products(m_out, n1, n2, t, d)))
+            pcts = rand_residues(gen, (1, 2 * m_out, 2, 1, d))
+            pn, pq = (rand_residues(gen, (2, 2 * t, d)) for _ in range(2))
+            cases.append((f"fold_pack_t{t}_m{m_out}", "fold_pack",
+                          lambda c=pcts, qn=pn, qp=pq, t=t:
+                          fold.fold_pack_round(c, qn, qp, t),
+                          lambda c=pcts, qn=pn, qp=pq, t=t:
+                          fold.fold_pack_round_plain(c, qn, qp, t), 20,
+                          [pcts, pn, pq], fold_products(m_out, 2, 1, t, d)))
+    return cases
+
+
+def expand_launches(name: str) -> list[tuple[str, int, int, int]]:
+    """The K4 launches of one query at a preset, in the order
+    coefficient_expansion makes them: (side, round, cts N, digits m).  Odd
+    slots stop after the stopround, where only the first t_gsw * nu_2 + 1
+    are switched."""
+    from spiral_tpu_torch.params import preset
+    p = preset(name)
+    out = []
+    for r in range(p.g):
+        out.append(("even", r, 1 << r, p.m_exp))
+        if p.stopround == 0 or r <= p.stopround:
+            n = 1 << r
+            if p.stopround > 0 and r == p.stopround:
+                n = min(n, p.t_gsw * p.further_dims + 1)
+            out.append(("odd", r, n, p.m_exp_right))
+    return out
+
+
+def time_expand_launches(gen) -> dict:
+    """Phase 3b: K4 at each launch of one query's expansion at
+    spiral_20_256 and spiral_24_256 (expand_launches), each held bit-equal
+    to keyswitch_plain and timed as cuda_ms does, beside its bound; the
+    sum over a query's launches per preset."""
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.server import expand
+
+    out = {}
+    for name in ("spiral_20_256", "spiral_24_256"):
+        d = preset(name).poly_len
+        rows, total, bound = [], 0.0, 0.0
+        for side, r, N, m in expand_launches(name):
+            cv, ca = (rand_residues(gen, (N, 2, 1, d)) for _ in range(2))
+            W = rand_residues(gen, (2, m, d))
+            got = expand.keyswitch(cv, ca, W, m)
+            err = int((got.long() - expand.keyswitch_plain(
+                cv, ca, W, m).long()).abs().max())
+            ms, timed_by = cuda_ms(lambda: expand.keyswitch(cv, ca, W, m), 20)
+            nbytes = (cv.numel() + ca.numel() + W.numel() + got.numel()) * 4
+            b_ms = max(nbytes / HBM_BYTES_PER_S,
+                       expand_products(N, m, d) / INT_PRODUCTS_PER_S) * 1e3
+            total, bound = total + ms, bound + b_ms
+            rows.append({"side": side, "round": r, "N": N, "m": m, "ms": ms,
+                         "timed_by": timed_by, "bound_ms": b_ms,
+                         "max_abs_err": err})
+            print(f"expand {name} {side} round {r} (N {N}, m {m}): "
+                  f"max_abs_err={err} (tolerance 0) kernel {ms:.4f} ms "
+                  f"({timed_by}) bound {b_ms:.4f} ms", flush=True)
+            if err:
+                raise SystemExit(f"expand {name} {side} round {r}: kernel "
+                                 f"differs from keyswitch_plain")
+        print(f"expand {name}: {len(rows)} launches per query, sum "
+              f"{total:.4f} ms (bound {bound:.4f} ms)", flush=True)
+        out[name] = {"launches": rows, "sum_ms": total, "sum_bound_ms": bound}
+    return out
 
 
 def compare_fold_rounds(gen) -> dict:
@@ -822,6 +927,10 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3b and print its JSON (no end "
+                         "to end run, no ok line): kernel times to compare "
+                         "two trees on one card")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -858,6 +967,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = phase("3 kernel checks", t0)
+    k4_launches = time_expand_launches(torch.Generator(
+        device="cuda").manual_seed(args.seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = phase("3b K4 per launch", t0)
+    if args.kernels_only:
+        print(json.dumps({"checks": checks, "fold_rounds": fold_rounds,
+                          "expand_launches": k4_launches}))
+        print(card)
+        return 0
     paths, per_query = {}, {}
     for phase_label, name, pack, path, batch_path in (
             ("4 spiral", "spiral_20_256", False, SPIRAL_PATH,
@@ -896,6 +1015,7 @@ def main() -> int:
             "cases": recs})
         if kernel in KERNEL_NOTES:
             out[-1]["note"] = KERNEL_NOTES[kernel]
+    next(r for r in out if r["name"] == "expand")["per_launch"] = k4_launches
     fc = next(r for r in out if r["name"] == "fold_contract")
     fc["library_probe"] = probe      # why library_ms is null
     fc["fold_rounds_k3_vs_k8b"] = fold_rounds

@@ -16,7 +16,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from ..params import B_I, P_I
+from .mod import MODS
 
 
 def _factorize(n: int) -> list[int]:
@@ -69,17 +69,29 @@ class NttTables:
     omega_inv: np.ndarray    # (2, d) omega^{-k}
     pos_of_slot: np.ndarray  # (d,) mxu slot j -> radix-2 output position
     slot_of_pos: np.ndarray  # (d,) inverse permutation
+    psi_rev: np.ndarray      # (2, d) psi^bitrev(k)
+    psi_inv_rev: np.ndarray  # (2, d) psi^-bitrev(k); entry 0 holds d^{-1}
 
     def packed(self) -> np.ndarray:
-        """(10, d) int32 table the CUDA kernels read: rows li*4 + r for
-        r = twist, untwist, omega, omega_inv; row 8 pos_of_slot, row 9
-        slot_of_pos."""
+        """(18, d) int32 table the CUDA kernels read, u32 bit patterns:
+        rows li*4 + r for r = twist, untwist, omega, omega_inv; row 8
+        pos_of_slot, row 9 slot_of_pos (ntt.cuh); rows 10 + li*4 + r for
+        r = psi_rev, its Shoup companions, psi_inv_rev, its companions
+        (ntt_reg.cuh)."""
         rows = []
         for li in range(2):
             rows += [self.twist[li], self.untwist[li], self.omega[li],
                      self.omega_inv[li]]
         rows += [self.pos_of_slot, self.slot_of_pos]
-        return np.stack(rows).astype(np.int32)
+        for li, p in enumerate(MODS):
+            rows += [self.psi_rev[li], shoup(self.psi_rev[li], p),
+                     self.psi_inv_rev[li], shoup(self.psi_inv_rev[li], p)]
+        return np.stack(rows).astype(np.uint32).view(np.int32)
+
+
+def shoup(w: np.ndarray, p: int) -> np.ndarray:
+    """Shoup companions floor(w * 2^32 / p) of residues w < p < 2^31."""
+    return (np.asarray(w, dtype=np.int64) << 32) // p
 
 
 def mxu_split(d: int) -> tuple[int, int]:
@@ -93,8 +105,9 @@ def mxu_split(d: int) -> tuple[int, int]:
 def ntt_tables(d: int) -> NttTables:
     assert d & (d - 1) == 0 and d >= 4
     L = d.bit_length() - 1
-    tw, utw, om, omi = [], [], [], []
-    for p in (P_I, B_I):
+    tw, utw, om, omi, prev, pirev = [], [], [], [], [], []
+    rev = bitrev(L, d)
+    for p in MODS:
         assert (p - 1) % (2 * d) == 0
         psi = pow(primitive_root(p), (p - 1) // (2 * d), p)
         psi_inv = pow(psi, p - 2, p)
@@ -103,6 +116,9 @@ def ntt_tables(d: int) -> NttTables:
         utw.append(_powers(psi_inv, d, p) * d_inv % p)
         om.append(_powers(psi * psi % p, d, p))
         omi.append(_powers(psi_inv * psi_inv % p, d, p))
+        prev.append(tw[-1][rev])
+        pirev.append(_powers(psi_inv, d, p)[rev])
+        pirev[-1][0] = d_inv
     d1, d2 = mxu_split(d)
     j = np.arange(d)
     k = d1 * (j % d2) + j // d2
@@ -111,4 +127,5 @@ def ntt_tables(d: int) -> NttTables:
     slot_of_pos[pos_of_slot] = j
     return NttTables(d=d, twist=np.stack(tw), untwist=np.stack(utw),
                      omega=np.stack(om), omega_inv=np.stack(omi),
-                     pos_of_slot=pos_of_slot, slot_of_pos=slot_of_pos)
+                     pos_of_slot=pos_of_slot, slot_of_pos=slot_of_pos,
+                     psi_rev=np.stack(prev), psi_inv_rev=np.stack(pirev))

@@ -9,15 +9,25 @@
 //
 // Replaces the Pallas key-switch spiral_tpu/server/expand_pallas.py
 // _keyswitch_call (kernel _make_keyswitch_kernel), which forms int8 digits
-// with a bias and contracts them in limb matmuls.  One block of d/2 threads
-// per (ct, limb) walks the m digit polys through one 8 KB shared buffer
-// (digits -> twist -> radix-2 NTT), multiply-accumulates each slot against W
-// read at the slot's mxu index into two u64 accumulators per slot, then
-// transforms row 1 of c the same way and writes cv + acc in mxu order.  The
-// automorphism that makes c is K8a below, a launch of its own.
+// with a bias and contracts them in limb matmuls.
 //
-// Bound on the H100: m + 1 NTTs of d = 2048 per block, each 11
-// __syncthreads() stages; early rounds run only a few blocks.
+// Bound on the H100: the m + 1 NTTs of d = 2048 per (ct, limb), integer
+// multiplies and latency; an expansion round has 2^r cts, so its early
+// rounds have almost no parallelism to give (m = 56: 57 NTTs for each of
+// 2 (ct, limb) pairs in round 0).  The design spreads the m + 1 polys of one
+// (ct, limb) over a thread-block cluster of C blocks: block c of the
+// cluster takes items c, c + C, ... (item k < m is digit k of c row 0, item
+// m is c row 1), two at a time through the register NTT of ntt_reg.cuh,
+// and keeps per-slot sums for both output rows in u64 registers (slot
+// t + e*d/8 of thread t, the operand W read coalesced).  It then leaves
+// its sums, reduced mod p, in its shared memory; after a cluster barrier
+// each block adds up a 1/C share of the 2d (row, slot) words over the
+// cluster's blocks through distributed shared memory, adds cv and writes
+// out.  The sum is exact, so the result does not depend on block order.
+// C = ceil((m + 1) / 3), at most 8 (the portable cluster size): 3 at m 8
+// and 6 at m 16 give each block 3 items (two steps of the two-poly core),
+// and m 56 gives 8 blocks of 7-8 items, so round 0 runs 16 blocks of at
+// most 4 steps instead of 2 blocks of 57 NTTs in sequence.
 //
 // K8a: the inverse NTT and tau_t of one expansion round in one launch.
 //
@@ -33,68 +43,99 @@
 // matmul.  Bound on the H100: as K1's inverse (11 __syncthreads() stages
 // of 64-bit Barrett products per poly), with one launch per round instead
 // of K1, two index-table copies and three elementwise launches.
+#include <type_traits>
+
 #include "ntt.cuh"
+#include "ntt_reg.cuh"
 
 using namespace spiral;
 
-__global__ void __launch_bounds__(1024)
+template <int L>
+__global__ void __launch_bounds__(1 << (L - 3), 2)
 expand_keyswitch_kernel(const uint32_t* __restrict__ cv,
                         const uint32_t* __restrict__ ca,
                         const uint32_t* __restrict__ W,
                         uint32_t* __restrict__ out,
-                        const uint32_t* __restrict__ tab, int m, int d,
-                        int logd) {
-  extern __shared__ uint32_t a[];
-  const int n = blockIdx.x, li = blockIdx.y;
+                        const uint32_t* __restrict__ tab, int m, int C) {
+  using S = reg::Sched<L>;
+  constexpr int D = S::D, T = S::T;
+  extern __shared__ uint32_t sm[];   // exchange buffers, then twiddles
+  uint2* tw = reinterpret_cast<uint2*>(sm + 2 * reg::NP_MAX * D);
+  reg::cg::cluster_group cluster = reg::cg::this_cluster();
+  const int c = cluster.block_rank();
+  const int n = blockIdx.x / C, li = blockIdx.y, t = threadIdx.x;
   const Mod md = mod_of(li);
-  const int half = d >> 1, tid = threadIdx.x;
+  reg::load_twiddles<L>(tw, tab, reg::ROW_REG + 4 * li, t);
+  uint32_t pos[4];
+  reg::load_slot_positions<L>(pos, tab, t);
   const int bits = bits_per(m);
   const uint64_t mask = bits < 32 ? (1ull << bits) - 1 : 0xFFFFFFFFull;
-  const uint32_t* twist = tab + (li * 4 + 0) * d;
-  const uint32_t* omega = tab + (li * 4 + 2) * d;
-  const int slot[2] = {(int)tab[9 * d + tid], (int)tab[9 * d + tid + half]};
   // (N, 2, 1, 2, d): row r, limb l of ct n at ((n*2 + r)*2 + l)*d
-  const uint32_t* c0 = ca + (size_t)n * 4 * d;
-  const uint32_t* c1 = ca + ((size_t)n * 4 + 2 + li) * d;
-
-  uint64_t v[2];
-  for (int e = 0; e < 2; ++e) {
-    const int i = tid + e * half;
-    v[e] = lift(c0[i], c0[d + i]);
-  }
-  uint64_t acc[2][2] = {};
-  for (int k = 0; k < m; ++k) {
-    const int sh = k * bits;
-    for (int e = 0; e < 2; ++e) {
-      const int i = tid + e * half;
-      const uint64_t dg = sh < 64 ? (v[e] >> sh) & mask : 0;
-      a[i] = md.mul(md.reduce(dg), twist[i]);
-    }
-    __syncthreads();
-    ntt_dif(a, omega, md, d, logd);
-    for (int r = 0; r < 2; ++r) {
-      const uint32_t* wr = W + ((size_t)(r * m + k) * 2 + li) * d;
-      for (int e = 0; e < 2; ++e)
-        acc[r][e] += (uint64_t)a[tid + e * half] * wr[slot[e]];
-    }
-    __syncthreads();
-    if (k % 64 == 63)   // keep the sums below 2^63
-      for (int r = 0; r < 2; ++r)
-        for (int e = 0; e < 2; ++e) acc[r][e] = md.reduce(acc[r][e]);
-  }
-  for (int e = 0; e < 2; ++e) {
-    const int i = tid + e * half;
-    a[i] = md.mul(c1[i], twist[i]);
-  }
+  const uint32_t* c0 = ca + (size_t)n * 4 * D;
+  const uint32_t* c1 = ca + ((size_t)n * 4 + 2 + li) * D;
+  uint64_t v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = lift(c0[e * T + t], c0[D + e * T + t]);
+  uint64_t acc[2][8] = {};
+  int par = 0;
   __syncthreads();
-  ntt_dif(a, omega, md, d, logd);
-  for (int e = 0; e < 2; ++e) acc[1][e] += a[tid + e * half];
-  for (int r = 0; r < 2; ++r) {
-    for (int e = 0; e < 2; ++e) {
-      const size_t idx = ((size_t)n * 4 + r * 2 + li) * d + slot[e];
-      out[idx] = md.add(cv[idx], md.reduce(acc[r][e]));
+
+  auto step = [&](auto np, int k0) {
+    constexpr int NP = decltype(np)::value;
+    uint32_t x[NP][8];
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int k = k0 + q * C;
+      const int sh = k * bits;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (k == m) {
+          x[q][e] = c1[e * T + t];
+        } else {
+          const uint64_t dg = sh < 64 ? (v[e] >> sh) & mask : 0;
+          x[q][e] = bits <= 29 ? (uint32_t)dg : md.reduce(dg);  // < 4p
+        }
+      }
     }
+    reg::forward<L, NP>(x, sm, par, tw, md.p, t);
+    reg::to_slots<L, NP>(x, sm, par, pos, t);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int k = k0 + q * C;
+      if (k == m) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[1][e] += reg::canon(x[q][e], md.p);
+        continue;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t* wr = W + ((size_t)(r * m + k) * 2 + li) * D + t;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[r][e] += (uint64_t)reg::canon(x[q][e], md.p) * wr[e * T];
+      }
+    }
+  };
+  for (int k = c; k <= m; k += 2 * C) {
+    if (k + C <= m)
+      step(std::integral_constant<int, 2>{}, k);
+    else
+      step(std::integral_constant<int, 1>{}, k);
   }
+
+  __syncthreads();   // every slot read of the last exchange is done
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sm[r * D + e * T + t] = md.reduce(acc[r][e]);
+  cluster.sync();
+  for (int u = c * T + t; u < 2 * D; u += C * T) {
+    const int r = u >> L, j = u & (D - 1);
+    const size_t idx = ((size_t)n * 4 + r * 2 + li) * D + j;
+    // C partial sums below p and cv: below 9p < 2^32
+    out[idx] = md.reduce(reg::cluster_sum(cluster, sm, C, u) + cv[idx]);
+  }
+  cluster.sync();    // no block leaves while its shared memory is read
 }
 
 __global__ void inv_ntt_automorph_kernel(const uint32_t* __restrict__ in,
@@ -135,11 +176,21 @@ extern "C" int spiral_expand_keyswitch(const void* cv, const void* ca,
                                        const void* W, void* out,
                                        const void* tab, int N, int m, int d,
                                        void* stream) {
-  if (d < 64 || d > 2048 || m < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid(N, 2);
-  expand_keyswitch_kernel<<<grid, d / 2, d * sizeof(uint32_t),
-                            (cudaStream_t)stream>>>(
-      (const uint32_t*)cv, (const uint32_t*)ca, (const uint32_t*)W,
-      (uint32_t*)out, (const uint32_t*)tab, m, d, log2_exact(d));
-  return (int)cudaGetLastError();
+  // at m <= 1024 a block sums at most 129 products below 2^56 per slot
+  if (m < 1 || m > 1024 || N < 1) return (int)cudaErrorInvalidValue;
+  const int C = (m + 3) / 3 < 8 ? (m + 3) / 3 : 8;
+  const dim3 grid(C * N, 2);
+  const auto* a = (const uint32_t*)cv;
+  const auto* b = (const uint32_t*)ca;
+  const auto* w = (const uint32_t*)W;
+  const auto* tb = (const uint32_t*)tab;
+  auto* o = (uint32_t*)out;
+  switch (d) {
+    case 256: return reg::launch_clusters<8>(expand_keyswitch_kernel<8>, grid,
+                                             C, stream, a, b, w, o, tb, m, C);
+    case 2048: return reg::launch_clusters<11>(expand_keyswitch_kernel<11>,
+                                               grid, C, stream, a, b, w, o, tb,
+                                               m, C);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -73,8 +73,9 @@ def keyswitch(cv: torch.Tensor, c_auto: torch.Tensor, W: torch.Tensor,
     for t, name in ((cv, "expand cv"), (c_auto, "expand c_auto")):
         kernels.require(t, (N, 2, 1, 2, d), name)
     kernels.require(W, (2, m, 2, d), "expand W")
-    if not 64 <= d <= 2048 or d & (d - 1):
-        raise ValueError(f"expand kernel takes 64 <= d <= 2048, got {d}")
+    if d not in kernels.REG_NTT_DEGREES:
+        raise ValueError(f"expand kernel takes d in "
+                         f"{kernels.REG_NTT_DEGREES}, got {d}")
     out = torch.empty_like(cv)
     if N:
         kernels.check(kernels.lib().spiral_expand_keyswitch(

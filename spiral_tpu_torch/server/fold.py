@@ -21,8 +21,9 @@ fold_rounds_fused_batch and fold_pack_rounds_fused_batch).  The plain
 versions take the leading query axis as it is.
 
 The single-query Spiral fold picks each round's kernels from the round's
-shape (``round_uses_mxu``): K3, or the counterpart of the JAX
-SPIRAL_FOLD=mxu path (fold_pallas.py fold_rounds_mxu), three launches:
+shape (``round_uses_mxu``; with MXU_MAX_K3_BLOCKS = 0, K3 in every round):
+K3, or the counterpart of the JAX SPIRAL_FOLD=mxu path (fold_pallas.py
+fold_rounds_mxu), three launches:
   ``fold_ntt``: kernel K8b-1 (csrc/fold_mxu.cu), replacing the Pallas
     _fold_ntt_call, writes the signed digits of every ct pair after the
     forward NTT, G (2 li, 2 s, t_gsw, m_out, n1*n2, d) in mxu order;
@@ -77,9 +78,10 @@ def fold_round(cts: torch.Tensor, q_neg: torch.Tensor, q_pos: torch.Tensor,
     kernels.require(cts, (two_m, n1, n2, 2, d), "fold cts")
     kernels.require(q_neg, (n1, m2, 2, d), "fold q_neg")
     kernels.require(q_pos, (n1, m2, 2, d), "fold q_pos")
-    if n1 != 3 or two_m % 2 or not 64 <= d <= 2048 or d & (d - 1):
+    if n1 != 3 or two_m % 2 or d not in kernels.REG_NTT_DEGREES:
         raise ValueError(f"fold kernel takes n1 = 3, an even ct count and "
-                         f"64 <= d <= 2048; got {tuple(cts.shape)}")
+                         f"d in {kernels.REG_NTT_DEGREES}; got "
+                         f"{tuple(cts.shape)}")
     out = torch.empty((two_m // 2, n1, n2, 2, d), dtype=torch.int32,
                       device=cts.device)
     kernels.check(kernels.lib().spiral_fold_round(
@@ -92,14 +94,14 @@ def fold_round(cts: torch.Tensor, q_neg: torch.Tensor, q_pos: torch.Tensor,
 
 # limbs of the mxu contraction: residues < 2^28 in four 7-bit limbs
 LIMB_BITS, N_LIMBS = 7, 4
-# K3 runs one block per (output ct, column, limb), each through 2*n1*t_gsw
-# digit NTTs in sequence, so a round with few outputs leaves most of the
-# card's SMs idle; K8b-1 spreads the same NTTs over 2*n1 times as many
-# blocks of t_gsw NTTs each.  A round runs K8b when K3 would run at most
-# this many blocks: the crossover of the per-round times of both on an
-# H100 (PERF.md).  Tests set it to 0 (K3 in every round) or to a large
-# count (K8b in every round).
-MXU_MAX_K3_BLOCKS = 64
+# A round runs K8b when K3 would run at most this many blocks of its old
+# design (2 * m_out * n2, one per output ct, column and limb).  K3 now
+# spreads each (output ct, column, limb) over a cluster of 2*n1 blocks of
+# t_gsw digit NTTs each, as K8b-1 does, and beats a K8b round in every
+# round measured on an H100 (m_out 1 to 1,024 at t_gsw 8, 9 and 11;
+# PERF.md), so no round picks K8b.  Tests and chip_smoke.py set a large
+# count to run K8b in every round.
+MXU_MAX_K3_BLOCKS = 0
 
 
 def fold_ntt_plain(cts_pairs: torch.Tensor, t_gsw: int) -> torch.Tensor:
@@ -266,11 +268,11 @@ def fold_pack_round(cts: torch.Tensor, q_neg: torch.Tensor,
     kernels.require(cts, (T, two_m, 2, 1, 2, d), "fold_pack cts")
     kernels.require(q_neg, (2, 2 * t_gsw, 2, d), "fold_pack q_neg")
     kernels.require(q_pos, (2, 2 * t_gsw, 2, d), "fold_pack q_pos")
-    if two_m % 2 or not 64 <= d <= 2048 or d & (d - 1) or \
+    if two_m % 2 or d not in kernels.REG_NTT_DEGREES or \
             not 2 <= t_gsw <= 56:
-        raise ValueError(f"fold_pack kernel takes an even ct count, "
-                         f"64 <= d <= 2048 and 2 <= t_gsw <= 56; got "
-                         f"{tuple(cts.shape)}, t_gsw {t_gsw}")
+        raise ValueError(f"fold_pack kernel takes an even ct count, d in "
+                         f"{kernels.REG_NTT_DEGREES} and 2 <= t_gsw <= 56; "
+                         f"got {tuple(cts.shape)}, t_gsw {t_gsw}")
     # pairs (2o, 2o+1) never cross a trial, so the trial axis flattens
     # into the output-ct index
     out = torch.empty((T, two_m // 2, 2, 1, 2, d), dtype=torch.int32,
@@ -299,9 +301,10 @@ def _check_fold_shapes(cts, q_neg, q_pos, ct_shape, q_shape, t_gsw, name):
     kernels.require(q_neg, q_shape, f"{name} q_neg")
     kernels.require(q_pos, q_shape, f"{name} q_pos")
     d = ct_shape[-1]
-    if not 64 <= d <= 2048 or d & (d - 1) or not 2 <= t_gsw <= 56:
-        raise ValueError(f"{name} kernel takes 64 <= d <= 2048 and "
-                         f"2 <= t_gsw <= 56; got {ct_shape}, t_gsw {t_gsw}")
+    if d not in kernels.REG_NTT_DEGREES or not 2 <= t_gsw <= 56:
+        raise ValueError(f"{name} kernel takes d in "
+                         f"{kernels.REG_NTT_DEGREES} and 2 <= t_gsw <= 56; "
+                         f"got {ct_shape}, t_gsw {t_gsw}")
 
 
 def fold_round_batch(cts: torch.Tensor, q_neg: torch.Tensor,

@@ -25,9 +25,9 @@ STOP_CFG = dict(nu_1=5, nu_2=2, p_db=256, q_prime_bits=20, t_gsw=9,
                 t_conv=4, t_exp=8, t_exp_right=56, poly_len=128)
 
 
-# the fold's engine per round: the default rule (at these sizes every
-# round runs K8b, the JAX SPIRAL_FOLD=mxu path), and K3 in every round
-FOLD_LIMITS = {"default": fold.MXU_MAX_K3_BLOCKS, "k3": 0}
+# the fold's engine per round: the default rule (K3 in every round), K3
+# forced, and K8b (the JAX SPIRAL_FOLD=mxu path) in every round
+FOLD_LIMITS = {"default": fold.MXU_MAX_K3_BLOCKS, "k3": 0, "k8b": 1 << 30}
 
 
 @pytest.fixture(scope="module")
@@ -56,8 +56,10 @@ def jax_run():
 
 @pytest.mark.parametrize("cfg, engines", [
     ("tiny", "default"), ("stopround", "default"),
-    ("tiny", "k3"), ("stopround", "k3")],
-    ids=["tiny", "stopround", "tiny-k3", "stopround-k3"])
+    ("tiny", "k3"), ("stopround", "k3"),
+    ("tiny", "k8b"), ("stopround", "k8b")],
+    ids=["tiny", "stopround", "tiny-k3", "stopround-k3", "tiny-k8b",
+         "stopround-k8b"])
 def test_torch_server_answers_jax_client(jax_run, monkeypatch, cfg,
                                          engines):
     p, tp, client, pub, pts, jdb, q, want = jax_run(cfg)

@@ -52,28 +52,38 @@ def test_firstdim_kernel(cuda):
           firstdim.multiply_plain(db, qk), "firstdim")
 
 
-@pytest.mark.parametrize("t_gsw", [8, 9])
-def test_fold_kernel(cuda, t_gsw):
-    d = 2048
-    cts = _residues(cuda, (8, 3, 2, d))
+# the fold template runs a cluster of 2*n1 blocks per (output ct, column,
+# limb), each through t_gsw digit NTTs two at a time: m_out 1 (one cluster
+# per column and limb) to 5, even and odd t_gsw
+FOLD_SHAPES = [(d, m_out) for d in (256, 2048) for m_out in (1, 2, 4, 5)]
+
+
+@pytest.mark.parametrize("d, m_out", FOLD_SHAPES)
+@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+def test_fold_kernel(cuda, t_gsw, d, m_out):
+    cts = _residues(cuda, (2 * m_out, 3, 2, d))
     qn, qp = (_residues(cuda, (3, 3 * t_gsw, d)) for _ in range(2))
     _same(fold.fold_round(cts, qn, qp, t_gsw),
           fold.fold_round_plain(cts, qn, qp, t_gsw), "fold")
 
 
-@pytest.mark.parametrize("m", [8, 56])
-def test_expand_kernel(cuda, m):
-    d = 2048
-    cv, ca = (_residues(cuda, (6, 2, 1, d)) for _ in range(2))
+# every (cts, digits) of the expansion's launches at spiral_20_256 (m 8 and
+# 56) and spiral_24_256 (m 16 and 56, 122 cts at its stopround); K4 runs a
+# cluster of ceil((m + 1) / 3) <= 8 blocks per (ct, limb)
+@pytest.mark.parametrize("d", [256, 2048])
+@pytest.mark.parametrize("m", [8, 16, 56])
+@pytest.mark.parametrize("N", [1, 2, 4, 8, 16, 32, 64, 122, 128, 256])
+def test_expand_kernel(cuda, m, N, d):
+    cv, ca = (_residues(cuda, (N, 2, 1, d)) for _ in range(2))
     W = _residues(cuda, (2, m, d))
     _same(expand.keyswitch(cv, ca, W, m),
           expand.keyswitch_plain(cv, ca, W, m), "expand")
 
 
-@pytest.mark.parametrize("t_gsw", [8, 9])
-def test_fold_pack_kernel(cuda, t_gsw):
-    d = 2048
-    cts = _residues(cuda, (4, 6, 2, 1, d))
+@pytest.mark.parametrize("d, m_out", FOLD_SHAPES)
+@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+def test_fold_pack_kernel(cuda, t_gsw, d, m_out):
+    cts = _residues(cuda, (3, 2 * m_out, 2, 1, d))
     qn, qp = (_residues(cuda, (2, 2 * t_gsw, d)) for _ in range(2))
     _same(fold.fold_pack_round(cts, qn, qp, t_gsw),
           fold.fold_pack_round_plain(cts, qn, qp, t_gsw), "fold_pack")
@@ -106,21 +116,23 @@ def test_firstdim_batch_kernel(cuda, B, n1, K, m, chunks):
     assert firstdim.passes(8, 1024, 3) == 1
 
 
+@pytest.mark.parametrize("m_out", [1, 2, 5])
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("t_gsw", [8, 9])
-def test_fold_batch_kernel(cuda, t_gsw, B):
+@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+def test_fold_batch_kernel(cuda, t_gsw, B, m_out):
     d = 2048
-    cts = _residues(cuda, (B, 4, 3, 2, d))
+    cts = _residues(cuda, (B, 2 * m_out, 3, 2, d))
     qn, qp = (_residues(cuda, (B, 3, 3 * t_gsw, d)) for _ in range(2))
     _same(fold.fold_round_batch(cts, qn, qp, t_gsw),
           fold.fold_round_plain(cts, qn, qp, t_gsw), "fold_batch")
 
 
+@pytest.mark.parametrize("m_out", [1, 2, 5])
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("t_gsw", [8, 9])
-def test_fold_pack_batch_kernel(cuda, t_gsw, B):
+@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+def test_fold_pack_batch_kernel(cuda, t_gsw, B, m_out):
     d = 2048
-    cts = _residues(cuda, (B, 4, 4, 2, 1, d))
+    cts = _residues(cuda, (B, 4, 2 * m_out, 2, 1, d))
     qn, qp = (_residues(cuda, (B, 2, 2 * t_gsw, d)) for _ in range(2))
     _same(fold.fold_pack_round_batch(cts, qn, qp, t_gsw),
           fold.fold_pack_round_plain(cts, qn, qp, t_gsw), "fold_pack_batch")

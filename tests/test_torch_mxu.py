@@ -126,7 +126,13 @@ def test_fold_ntt_plain_layout():
 
 def test_fold_picks_engine_per_round(monkeypatch):
     """A round runs K8b when K3 would run at most MXU_MAX_K3_BLOCKS blocks
-    (2 * m_out * n2), else K3; either way the fold's output is K3's."""
+    (2 * m_out * n2), else K3; either way the fold's output is K3's.  By
+    default no round of the headline presets runs K8b: the clustered K3
+    beat it in every round measured on the card."""
+    for name in ("spiral_20_256", "spiral_24_256"):
+        pr = tparams.preset(name)
+        assert not any(fold.round_uses_mxu(pr.num_per >> (r + 1), pr.n2)
+                       for r in range(pr.nu_2)), name
     tp = tparams.Params(nu_1=2, nu_2=3, p_db=256, t_gsw=3, t_conv=4,
                         t_exp=8, t_exp_right=8, poly_len=256)
     rng = np.random.default_rng(12)
