@@ -25,13 +25,19 @@ Phases, each printing its own lines and its wall time:
      inputs, both times on one line with the engine the fold picks for it;
   3b. K4 at each of the expansion's launches of one spiral_20_256 query
      (16) and one spiral_24_256 query (18), each held bit-equal to its
-     plain version and timed, with the sum per query (--kernels-only
-     stops here and prints the phase 3 and 3b JSON);
+     plain version and timed, with the sum per query;
+  3c. K1 at each of its 7 launches in one spiral_20_256 query (the
+     expansion's constants cached: the query's a, composition,
+     conversion, first dim) and K8a at each of its 9 (one per expansion
+     round), each held bit-equal to its plain version and timed, with the
+     sums and bounds per query (--kernels-only stops here and prints the
+     phase 3-3c JSON);
   4. Spiral: a tiny flow on the card against the plain CPU flow (equal
      response rows), then end to end at spiral_20_256: a seeded client, a
      2^20 x 256 B database from a numpy seed encoded on the card, and
      three queries (index 0, total_n - 1 and a random one), each decoded
-     against its record, with every kernel's launch count over that run;
+     against its record and launching K1 as often as phase 3c lists, with
+     every kernel's launch count over that run;
      then a batch of 8 (indices 0, total_n - 1 and six random ones) in
      one process_query_batch, each answer decoded and equal to its
      single-query rows; then the same three queries with the fold forced
@@ -586,6 +592,77 @@ def time_expand_launches(gen) -> dict:
     return out
 
 
+def k1_launches(name: str) -> list[tuple[str, str, int]]:
+    """The K1 launches of one query at a Spiral preset, in the order
+    process_query makes them, the expansion's constants being made once
+    per server: (stage, direction, polys per limb)."""
+    from spiral_tpu_torch.params import preset
+    p = preset(name)
+    n_gsw = p.further_dims * p.t_gsw
+    return [("query a", "forward", 1),
+            ("composition", "inverse", p.dim0 * 2),
+            ("composition", "forward", p.dim0 * p.m_conv),
+            ("conversion", "inverse", n_gsw * 2),
+            ("conversion", "forward", n_gsw * p.m_conv),
+            ("conversion", "forward", n_gsw * p.m_conv),
+            ("first dim", "inverse", p.num_per * p.n1 * p.n2)]
+
+
+def auto_launches(name: str) -> list[tuple[int, int, int]]:
+    """The K8a launches of one query at a Spiral preset: (round, t, cts),
+    every ct of the round while odd slots live, the evens after the
+    stopround."""
+    from spiral_tpu_torch.params import preset
+    p = preset(name)
+    return [(r, (p.poly_len >> r) + 1,
+             2 << r if p.stopround == 0 or r <= p.stopround else 1 << r)
+            for r in range(p.g)]
+
+
+def time_ntt_auto_launches(gen) -> dict:
+    """Phase 3c: K1 at each of its launches in one spiral_20_256 query
+    (k1_launches) and K8a at each of its rounds (auto_launches), each held
+    bit-equal to its plain version on inputs made on the card and timed
+    as cuda_ms does, beside its bound; the sums per query."""
+    from spiral_tpu_torch.arith import ntt
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.server import expand
+
+    name = "spiral_20_256"
+    d = preset(name).poly_len
+    out = {}
+    cases = {"ntt": [(f"{stage} {way}", n, getattr(ntt, way),
+                      getattr(ntt, way + "_plain"))
+                     for stage, way, n in k1_launches(name)],
+             "auto": [(f"round {r} (t {t})", 2 * n,
+                       lambda x, t=t: expand.inv_ntt_automorph(x, t),
+                       lambda x, t=t: expand.inv_ntt_automorph_plain(x, t))
+                      for r, t, n in auto_launches(name)]}
+    for kernel, launches in cases.items():
+        rows, total, bound = [], 0.0, 0.0
+        for tag, n, run, plain in launches:
+            x = rand_residues(gen, (n, d))
+            err = int((run(x).long() - plain(x).long()).abs().max())
+            ms, timed_by = cuda_ms(lambda: run(x), 20)
+            b_ms = max(2 * x.numel() * 4 / HBM_BYTES_PER_S,
+                       2 * n * ntt_products(d) / INT_PRODUCTS_PER_S) * 1e3
+            total, bound = total + ms, bound + b_ms
+            rows.append({"launch": tag, "polys": 2 * n, "ms": ms,
+                         "timed_by": timed_by, "bound_ms": b_ms,
+                         "max_abs_err": err})
+            print(f"{kernel} {name} {tag} ({n} x 2 polys): max_abs_err="
+                  f"{err} (tolerance 0) kernel {ms:.4f} ms ({timed_by}) "
+                  f"bound {b_ms:.4f} ms", flush=True)
+            if err:
+                raise SystemExit(f"{kernel} {name} {tag}: kernel differs "
+                                 f"from its plain version")
+        print(f"{kernel} {name}: {len(rows)} launches per query, sum "
+              f"{total:.4f} ms (bound {bound:.4f} ms)", flush=True)
+        out[kernel] = {"launches": rows, "sum_ms": total,
+                       "sum_bound_ms": bound}
+    return out
+
+
 def compare_fold_rounds(gen) -> dict:
     """Every fold round of spiral_20_256 (t_gsw 9) and spiral_24_256 (t_gsw
     11), and round 1 at t_gsw 8, as K3 and as a K8b round (K8b-1, K8b-2
@@ -818,6 +895,10 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
         if not ok:
             raise SystemExit(f"{name} query {idx} decoded to the wrong "
                              f"record")
+        if not pack and per_query["ntt"] != len(k1_launches(name)):
+            raise SystemExit(f"{name} query {idx}: {per_query['ntt']} K1 "
+                             f"launches, phase 3c lists "
+                             f"{len(k1_launches(name))}")
         answered.append((idx, q, resp))
     launches = dict(kernels.LAUNCHES)
     print(f"{name} launches over the path: {launches}", flush=True)
@@ -928,7 +1009,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 3b and print its JSON (no end "
+                    help="stop after phase 3c and print its JSON (no end "
                          "to end run, no ok line): kernel times to compare "
                          "two trees on one card")
     args = ap.parse_args()
@@ -972,9 +1053,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = phase("3b K4 per launch", t0)
+    k1_k8a = time_ntt_auto_launches(torch.Generator(
+        device="cuda").manual_seed(args.seed))
+    torch.cuda.empty_cache()
+    t0 = phase("3c K1 and K8a per launch", t0)
     if args.kernels_only:
         print(json.dumps({"checks": checks, "fold_rounds": fold_rounds,
-                          "expand_launches": k4_launches}))
+                          "expand_launches": k4_launches,
+                          "ntt_auto_launches": k1_k8a}))
         print(card)
         return 0
     paths, per_query = {}, {}
@@ -1016,6 +1102,9 @@ def main() -> int:
         if kernel in KERNEL_NOTES:
             out[-1]["note"] = KERNEL_NOTES[kernel]
     next(r for r in out if r["name"] == "expand")["per_launch"] = k4_launches
+    for r in out:
+        if r["name"] in k1_k8a:
+            r["per_launch"] = k1_k8a[r["name"]]
     fc = next(r for r in out if r["name"] == "fold_contract")
     fc["library_probe"] = probe      # why library_ms is null
     fc["fold_rounds_k3_vs_k8b"] = fold_rounds

@@ -2,10 +2,15 @@
 order (counterpart of spiral_tpu/arith/ntt.py and ntt_mxu.py; the
 module functions ``forward``/``inverse`` play the role of CrtNtt's).
 
-``forward``/``inverse`` take int32 residues (..., 2, d).  On a CPU tensor
-they run the plain radix-2 version below; on a CUDA tensor they launch
-kernel K1 (csrc/ntt.cu), which replaces the Pallas NTT
-(spiral_tpu/arith/ntt_pallas.py CrtNttPallas._run).
+``forward``/``inverse`` take int32 words (..., 2, d), read as residues
+mod (P_I, B_I) along the limb axis.  On a CPU tensor they run the plain
+radix-2 version below; on a CUDA tensor they launch kernel K1
+(csrc/ntt.cu), which replaces the Pallas NTT
+(spiral_tpu/arith/ntt_pallas.py CrtNttPallas._run).  K1 runs the register
+core of csrc/ntt_reg.cuh: each block loads one limb's merged twiddles once
+and its teams of d/8 threads transform that limb's polys two at a time,
+rows read and written coalesced.  It is built for d in
+``kernels.REG_NTT_DEGREES`` only.
 """
 from __future__ import annotations
 
@@ -76,9 +81,9 @@ def inverse_plain(x: torch.Tensor) -> torch.Tensor:
 def _launch(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     d = x.shape[-1]
     kernels.require(x, x.shape, "ntt input")
-    if x.shape[-2] != 2 or d & (d - 1) or not 64 <= d <= 2048:
-        raise ValueError(f"ntt kernel takes (..., 2, d), 64 <= d <= 2048 a "
-                         f"power of two; got {tuple(x.shape)}")
+    if x.shape[-2] != 2 or d not in kernels.REG_NTT_DEGREES:
+        raise ValueError(f"ntt kernel takes (..., 2, d), d in "
+                         f"{kernels.REG_NTT_DEGREES}; got {tuple(x.shape)}")
     out = torch.empty_like(x)
     n_polys = x.numel() // d
     if n_polys:

@@ -36,16 +36,21 @@
 // Replaces the Pallas kernel spiral_tpu/server/expand_pallas.py _auto_call
 // (kernel _make_auto_kernel, SPIRAL_AUTO=matmul), which ran tau_t as an
 // int8 +/-1 permutation matmul over four 7-bit limb planes because Mosaic
-// has no lane gather.  Here one block of d/2 threads per (poly, limb) runs
-// K1's inverse network in shared memory and scatters each untwisted
-// coefficient to its image on the store: t is odd, so i -> i*t mod d is a
-// bijection, and the index and sign come from i*t, with no table and no
-// matmul.  Bound on the H100: as K1's inverse (11 __syncthreads() stages
-// of 64-bit Barrett products per poly), with one launch per round instead
-// of K1, two index-table copies and three elementwise launches.
+// has no lane gather.  Here it is K1's inverse (ntt.cu) on the register
+// core of ntt_reg.cuh, with the same grid and teams: slots in coalesced,
+// `from_slots`, `inverse`, d^{-1}, canonical; then tau_t through shared
+// memory, with no table and no matmul.  t is odd, so i -> i*t mod d is a
+// bijection: each thread writes coefficient i to word (i*t) mod d of the
+// exchange buffer the last pass did not read, negated when (i*t) / d is
+// odd (0 stays 0), and after the team's barrier the row is read back and
+// stored coalesced.  The buffer is unswizzled: the 32 words a warp writes
+// at once are t apart mod d, and t odd puts them in 32 distinct banks.
+// Bound on the H100: as K1's inverse (integer issue and barrier latency;
+// the bytes, 8 KB in and out per poly, take 0.005 ms at round 8), with one
+// launch per round instead of K1, two index-table copies and three
+// elementwise launches.
 #include <type_traits>
 
-#include "ntt.cuh"
 #include "ntt_reg.cuh"
 
 using namespace spiral;
@@ -138,38 +143,56 @@ expand_keyswitch_kernel(const uint32_t* __restrict__ cv,
   cluster.sync();    // no block leaves while its shared memory is read
 }
 
-__global__ void inv_ntt_automorph_kernel(const uint32_t* __restrict__ in,
-                                         uint32_t* __restrict__ out,
-                                         const uint32_t* __restrict__ tab,
-                                         int d, int logd, int t) {
-  extern __shared__ uint32_t a[];
-  const int poly = blockIdx.x, li = poly & 1;
-  const Mod md = mod_of(li);
-  const uint32_t* x = in + (size_t)poly * d;
-  uint32_t* y = out + (size_t)poly * d;
-  const uint32_t* pos_of_slot = tab + 8 * d;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) a[pos_of_slot[j]] = x[j];
-  __syncthreads();
-  ntt_dit_inv(a, tab + (li * 4 + 3) * d, md, d, logd);
-  const uint32_t* untwist = tab + (li * 4 + 1) * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const uint32_t v = md.mul(a[i], untwist[i]);
-    const long long it = (long long)i * t;
-    y[it & (d - 1)] = ((it >> logd) & 1) && v ? md.p - v : v;
-  }
+template <int L>
+__global__ void __launch_bounds__(reg::Batch<L>::THREADS,
+                                  reg::Batch<L>::MIN_BLOCKS)
+inv_ntt_automorph_kernel(const uint32_t* __restrict__ in,
+                         uint32_t* __restrict__ out,
+                         const uint32_t* __restrict__ tab, int t_auto,
+                         int per_limb) {
+  constexpr int D = 1 << L, T = D / 8;
+  const uint32_t ta = (uint32_t)t_auto & (2 * D - 1);   // tau_t mod 2d
+  // coefficient i = e*d/8 + t goes to (i*t) mod d, negated when (i*t) / d
+  // is odd; the buffer is the one the last exchange did not read,
+  // unswizzled: t is odd, so a warp's 32 stores hit 32 banks
+  auto finish = [&](auto& x, uint32_t* sm, int& par, uint32_t p, int t) {
+    using X = std::remove_reference_t<decltype(x)>;
+    constexpr int NP = std::extent<X>::value;
+    uint32_t* img = sm + par * reg::NP_MAX * D;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t it = (uint32_t)(e * T + t) * ta;
+      const bool neg = (it >> L) & 1;
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        img[q * D + (it & (D - 1))] = neg && x[q][e] ? p - x[q][e] : x[q][e];
+    }
+    reg::team_sync<L>();
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[q][e] = img[q * D + e * T + t];
+    par ^= 1;
+  };
+  reg::batched_ntt<L, true>(in, out, tab, per_limb, finish);
 }
 
 // K8a: in, out (n_polys = N*2, d), in NTT, out coefficient domain; t odd.
 extern "C" int spiral_inv_ntt_automorph(const void* in, void* out,
                                         const void* tab, int n_polys, int d,
                                         int t, void* stream) {
-  if (d < 64 || d > 2048 || (d & (d - 1)) || !(t & 1) || n_polys < 1)
+  if (!(t & 1) || n_polys < 2 || n_polys % 2)
     return (int)cudaErrorInvalidValue;
-  inv_ntt_automorph_kernel<<<n_polys, d / 2, d * sizeof(uint32_t),
-                             (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, (const uint32_t*)tab, d,
-      log2_exact(d), t);
-  return (int)cudaGetLastError();
+  const auto* a = (const uint32_t*)in;
+  const auto* tb = (const uint32_t*)tab;
+  auto* o = (uint32_t*)out;
+  switch (d) {
+    case 256: return reg::launch_limbs<8, inv_ntt_automorph_kernel<8>>(
+        n_polys / 2, stream, a, o, tb, t);
+    case 2048: return reg::launch_limbs<11, inv_ntt_automorph_kernel<11>>(
+        n_polys / 2, stream, a, o, tb, t);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int spiral_expand_keyswitch(const void* cv, const void* ca,

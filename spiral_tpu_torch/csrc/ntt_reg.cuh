@@ -1,20 +1,27 @@
-// Register-resident negacyclic NTT for Hopper: the core of the expansion
-// key switch K4 (expand.cu) and of the fold template K3/K5/K6 (fold.cu).
+// Register-resident negacyclic NTT for Hopper: the core of the batched NTT
+// K1 (ntt.cu), of the expansion's inverse NTT + automorphism K8a and key
+// switch K4 (expand.cu), and of the fold template K3/K5/K6 (fold.cu).
+// The radix-2 network of ntt.cuh is left to K7 (pack.cu) and K8b-1
+// (fold_mxu.cu).
 //
-// It replaces no TPU kernel of its own: the Pallas kernels that K4 and the
-// fold replace (spiral_tpu/server/expand_pallas.py _keyswitch_call,
-// fold_pallas.py _fold_round_call) ran their NTTs as int8 matmuls on the
-// MXU; here they are butterflies on the CUDA cores.
+// It replaces no TPU kernel of its own: the Pallas kernels that these
+// kernels replace (spiral_tpu/arith/ntt_pallas.py CrtNttPallas._run,
+// server/expand_pallas.py _auto_call and _keyswitch_call, fold_pallas.py
+// _fold_round_call) ran their NTTs as int8 matmuls on the MXU; here they
+// are butterflies on the CUDA cores.
 //
-// The radix-2 network of ntt.cuh (K1, K8a, K8b-1) keeps one poly in shared
-// memory with d/2 threads: 11 __syncthreads() stages at d = 2048, a twiddle
-// read from device memory and a 64-bit Barrett product per butterfly.  A
-// block that walks dozens of digit polys through it is a latency chain.
-// Here a team of d/8 threads holds NP polys at once, 8 coefficients of each
-// in registers per thread, and runs radix-8 passes in registers (stages
+// The radix-2 network of ntt.cuh keeps one poly in shared memory with d/2
+// threads: 11 __syncthreads() stages at d = 2048, a twiddle read from
+// device memory and a 64-bit Barrett product per butterfly.  A block that
+// walks dozens of digit polys through it is a latency chain.  Here a team
+// of d/8 threads holds NP polys at once, 8 coefficients of each in
+// registers per thread, and runs radix-8 passes in registers (stages
 // 3p .. 3p+2 in pass p; at d = 2048 passes of 3, 3, 3 and 2 stages), with
 // one exchange through shared memory between passes: 4 barriers per NTT
-// instead of 11, shared by the NP polys.
+// instead of 11, shared by the NP polys.  A team of 256 threads (d = 2048)
+// is its block and syncs with __syncthreads(); a team of one warp (d = 256)
+// syncs with __syncwarp(), so a block may hold several teams that run
+// apart, each on its own exchange buffers (the `sm` base the core takes).
 //
 // Arithmetic: every multiply by a fixed operand is a Shoup product,
 //   a*w - umulhi(a, w')*p  in [0, 2p),  w' = floor(w * 2^32 / p),
@@ -42,15 +49,20 @@
 // thread t holds slots t + e*d/8: the key and query operands (mxu order)
 // are then read coalesced.  The inverse starts with the opposite exchange.
 //
-// Shared memory: 2 buffers x NP polys x d words, alternated so that one
-// barrier per exchange suffices (an exchange writes the buffer the last
-// one did not read), then d (w, w') pairs: 24 d bytes at NP = 2 (48 KB at
-// d = 2048).  Word i of a buffer lives at i ^ g((i >> 5) & 7), g(x) =
-// (x << 2) ^ x: every pass's store and load, and the slot reads, are then
-// free of bank conflicts at d = 2048.
+// Shared memory: 2 buffers x NP polys x d words per team, alternated so
+// that one barrier per exchange suffices (an exchange writes the buffer the
+// last one did not read), then d (w, w') pairs for the block: 24 d bytes
+// for one team at NP = 2 (48 KB at d = 2048).  Word i of a buffer lives at
+// i ^ g((i >> 5) & 7), g(x) = (x << 2) ^ x: every pass's store and load,
+// and the slot reads, are then free of bank conflicts at d = 2048.
+//
+// Inputs: `forward` takes words below 4p and `inverse` below 2p;
+// `load_polys` brings any 32-bit word below 2p on the load.
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -76,6 +88,15 @@ struct Sched {
   }
   static constexpr int SMEM = (2 * NP_MAX * D) * 4 + D * 8;
 };
+
+// The barrier of one team (see the header).
+template <int L>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (Sched<L>::T == 32)
+    __syncwarp();
+  else
+    __syncthreads();
+}
 
 __device__ __forceinline__ int swz(int i) {
   const int x = (i >> 5) & 7;
@@ -167,7 +188,7 @@ __device__ __forceinline__ void exchange(uint32_t (&x)[NP][8], uint32_t* sm,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       buf[q * D + swz(pass_index<L, PA>(t, j))] = x[q][j];
-  __syncthreads();
+  team_sync<L>();
 #pragma unroll
   for (int q = 0; q < NP; ++q)
 #pragma unroll
@@ -218,12 +239,13 @@ __device__ __forceinline__ void load_slot_positions(uint32_t (&pos)[4],
     pos[e] = swz(row[2 * e * T]) | (swz(row[(2 * e + 1) * T]) << 16);
 }
 
-// The (w, w') pairs of table rows `row`, `row` + 1 into shared memory.
-template <int L>
+// The (w, w') pairs of table rows `row`, `row` + 1 into shared memory, by
+// the NT threads of a block (thread t).
+template <int L, int NT = Sched<L>::T>
 __device__ __forceinline__ void load_twiddles(uint2* tw, const uint32_t* tab,
                                               int row, int t) {
   constexpr int D = Sched<L>::D;
-  for (int i = t; i < D; i += Sched<L>::T)
+  for (int i = t; i < D; i += NT)
     tw[i] = make_uint2(tab[row * D + i], tab[(row + 1) * D + i]);
 }
 
@@ -239,7 +261,7 @@ __device__ __forceinline__ void to_slots(uint32_t (&x)[NP][8], uint32_t* sm,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       buf[q * D + swz(pass_index<L, LAST>(t, j))] = x[q][j];
-  __syncthreads();
+  team_sync<L>();
 #pragma unroll
   for (int q = 0; q < NP; ++q)
 #pragma unroll
@@ -247,19 +269,165 @@ __device__ __forceinline__ void to_slots(uint32_t (&x)[NP][8], uint32_t* sm,
   par ^= 1;
 }
 
-// Slots -> the inverse's first layout, one poly.
-template <int L>
-__device__ __forceinline__ void from_slots(uint32_t (&x)[1][8], uint32_t* sm,
+// Slots -> the inverse's first layout: x[q][e] holds slot t + e*d/8.
+template <int L, int NP>
+__device__ __forceinline__ void from_slots(uint32_t (&x)[NP][8], uint32_t* sm,
                                            int& par,
                                            const uint32_t (&pos)[4], int t) {
-  constexpr int LAST = Sched<L>::NPASS - 1;
-  uint32_t* buf = sm + par * NP_MAX * Sched<L>::D;
+  constexpr int D = Sched<L>::D, LAST = Sched<L>::NPASS - 1;
+  uint32_t* buf = sm + par * NP_MAX * D;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) buf[slot_pos(pos, e)] = x[0][e];
-  __syncthreads();
+  for (int q = 0; q < NP; ++q)
 #pragma unroll
-  for (int j = 0; j < 8; ++j) x[0][j] = buf[swz(pass_index<L, LAST>(t, j))];
+    for (int e = 0; e < 8; ++e) buf[q * D + slot_pos(pos, e)] = x[q][e];
+  team_sync<L>();
+#pragma unroll
+  for (int q = 0; q < NP; ++q)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x[q][j] = buf[q * D + swz(pass_index<L, LAST>(t, j))];
   par ^= 1;
+}
+
+// Any 32-bit word -> the same residue in [0, 2p): a Shoup product by 1,
+// whose companion floor(2^32 / p) is `one` (below the lazy bounds of both
+// `forward` and `inverse`).
+__device__ __forceinline__ uint32_t reduce_word(uint32_t a, uint32_t p,
+                                                uint32_t one) {
+  return a - __umulhi(a, one) * p;
+}
+
+// ---- the batched kernels K1 and K8a: polys of one limb of a (..., 2, d)
+// tensor, poly j of limb li in row 2j + li ----
+
+template <int L>
+struct Batch {
+  static constexpr int T = Sched<L>::T, D = Sched<L>::D;
+  static constexpr int W = T == 32 ? 8 : 1;     // teams per block
+  static constexpr int THREADS = W * T;
+  static constexpr int MIN_BLOCKS = 4;          // per SM: 64 registers
+  static constexpr int SMEM = W * 2 * NP_MAX * D * 4 + D * 8;
+};
+
+// Row entries e*d/8 + t of polys j .. j+NP-1 of limb li, reduced below 2p.
+template <int L, int NP>
+__device__ __forceinline__ void load_polys(uint32_t (&x)[NP][8],
+                                           const uint32_t* in, int j, int li,
+                                           int t) {
+  constexpr int D = Sched<L>::D, T = Sched<L>::T;
+  const uint32_t p = li ? B_I : P_I;
+  const uint32_t one = li ? 0xFFFFFFFFu / B_I : 0xFFFFFFFFu / P_I;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    const uint32_t* row = in + (size_t)(2 * (j + q) + li) * D + t;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[q][e] = reduce_word(row[e * T], p, one);
+  }
+}
+
+template <int L, int NP>
+__device__ __forceinline__ void store_polys(const uint32_t (&x)[NP][8],
+                                            uint32_t* out, int j, int li,
+                                            int t) {
+  constexpr int D = Sched<L>::D, T = Sched<L>::T;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    uint32_t* row = out + (size_t)(2 * (j + q) + li) * D + t;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) row[e * T] = x[q][e];
+  }
+}
+
+// Team g of G walks steps g, g + G, ...: step s takes polys 2s and 2s + 1
+// of the limb (NP = 2), or poly 2s alone when it is the limb's last.
+template <typename Step>
+__device__ __forceinline__ void limb_steps(int per_limb, int g, int G,
+                                           Step step) {
+  for (int s = g; 2 * s < per_limb; s += G) {
+    if (2 * s + 1 < per_limb)
+      step(std::integral_constant<int, 2>{}, 2 * s);
+    else
+      step(std::integral_constant<int, 1>{}, 2 * s);
+  }
+}
+
+// The body of K1 and K8a, in block (x, li) of a launch_limbs grid: load
+// limb li's twiddles (psi_rev, or psi_inv_rev when INV) once; then each
+// team walks its steps: load NP polys reduced below 2p, transform them
+// (forward, to slots, canonical; or from slots, inverse, d^{-1},
+// canonical), hand them to finish(x, sm, par, p, t), store them.
+template <int L, bool INV, typename Finish>
+__device__ __forceinline__ void batched_ntt(const uint32_t* __restrict__ in,
+                                            uint32_t* __restrict__ out,
+                                            const uint32_t* __restrict__ tab,
+                                            int per_limb, Finish finish) {
+  using B = Batch<L>;
+  constexpr int D = B::D, T = B::T;
+  extern __shared__ uint32_t smem[];   // per team: exchange buffers; twiddles
+  uint2* tw = reinterpret_cast<uint2*>(smem + B::W * 2 * NP_MAX * D);
+  const int team = threadIdx.x / T, t = threadIdx.x % T, li = blockIdx.y;
+  uint32_t* sm = smem + team * 2 * NP_MAX * D;
+  const uint32_t p = li ? B_I : P_I;
+  const int row = ROW_REG + 4 * li + (INV ? 2 : 0);
+  load_twiddles<L, B::THREADS>(tw, tab, row, threadIdx.x);
+  uint32_t pos[4];
+  load_slot_positions<L>(pos, tab, t);
+  const uint2 d_inv = make_uint2(tab[row * D], tab[(row + 1) * D]);
+  int par = 0;
+  __syncthreads();
+
+  limb_steps(per_limb, blockIdx.x * B::W + team, gridDim.x * B::W,
+             [&](auto np, int j) {
+    constexpr int NP = decltype(np)::value;
+    uint32_t x[NP][8];
+    load_polys<L, NP>(x, in, j, li, t);
+    if constexpr (INV) {
+      from_slots<L, NP>(x, sm, par, pos, t);
+      inverse<L, NP>(x, sm, par, tw, p, t);
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const uint32_t r = shoup(x[q][e], d_inv, p);   // [0, 2p)
+          x[q][e] = r >= p ? r - p : r;
+        }
+    } else {
+      forward<L, NP>(x, sm, par, tw, p, t);
+      to_slots<L, NP>(x, sm, par, pos, t);
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[q][e] = canon(x[q][e], p);
+    }
+    finish(x, sm, par, p, t);
+    store_polys<L, NP>(x, out, j, li, t);
+  });
+}
+
+// Launch K over grid (x, 2), blockIdx.y the limb, args then per_limb.  The
+// blocks the card holds at once (occupancy x SMs, found at the first
+// launch) are split between the limbs, and cut to the steps of a limb:
+// each block loads the twiddles once and loops over its steps.
+template <int L, auto K, typename... Args>
+static int launch_limbs(int per_limb, void* stream, Args... args) {
+  using B = Batch<L>;
+  static const int wave = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, B::THREADS,
+                                                  B::SMEM);
+    return sms * per_sm;
+  }();
+  const int need = ((per_limb + 1) / 2 + B::W - 1) / B::W;
+  const int share = wave / 2 > 1 ? wave / 2 : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(need < share ? need : share, 2);
+  cfg.blockDim = dim3(B::THREADS);
+  cfg.dynamicSmemBytes = B::SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, K, args..., per_limb);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // Sum of word i over the shared memory of the cluster's first n blocks.

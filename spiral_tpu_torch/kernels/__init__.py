@@ -33,8 +33,9 @@ HEADERS = ("common.cuh", "ntt.cuh", "ntt_reg.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-# ring degrees the kernels on the register NTT (csrc/ntt_reg.cuh: K3-K6)
-# are built for, one instance each: the presets' 256 and 2048
+# ring degrees the kernels on the register NTT (csrc/ntt_reg.cuh: K1,
+# K3-K6, K4 and K8a) are built for, one instance each: the presets' 256 and
+# 2048; their wrappers raise on any other
 REG_NTT_DEGREES = (256, 2048)
 
 LAUNCHES = {"ntt": 0, "firstdim": 0, "fold": 0, "expand": 0,

@@ -40,7 +40,7 @@ from .crypto.query import Query, generate_query, reconstruct_cts
 from .pir import ServerTimings, StageClock, db_tensor, stack_queries
 from .server import db as db_mod
 from .server.db import EncodedDb, ImplicitDb, bitrev_perm
-from .server.expand import coefficient_expansion
+from .server.expand import coefficient_expansion, neg_monomial_ntts
 from .server.firstdim import multiply_query_by_db_batch
 from .server.fold import fold_pack_rounds, fold_pack_rounds_batch
 from .server.pack import pack_ciphertexts
@@ -191,6 +191,7 @@ class PackServer:
         self.last_batch_timings: ServerTimings | None = None
         self._g_ntt = ntt.forward(build_gadget(2, 2 * params.t_gsw,
                                                params.poly_len, self.device))
+        neg_monomial_ntts(params.poly_len, self.device)   # made once here
 
     # -- stages (spiral_tpu/pack.py PackServer._build_stages); the *_batch
     # forms, convert and pack take and give a leading query axis --

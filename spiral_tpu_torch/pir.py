@@ -32,7 +32,8 @@ from .crypto.publicparams import PublicParams, generate_public_params
 from .crypto.query import Query, generate_query, reconstruct_cts
 from .server.convert import regev_to_gsw_batch, scal_to_mat_batch
 from .server.db import EncodedDb, ImplicitDb, encode_db, random_db
-from .server.expand import coefficient_expansion, reorder_from_stopround
+from .server.expand import (coefficient_expansion, neg_monomial_ntts,
+                            reorder_from_stopround)
 from .server.firstdim import (finish_output_batch, multiply_query_by_db_batch,
                               reorient_query)
 from .server.fold import fold_ciphertexts, fold_rounds_batch
@@ -126,6 +127,7 @@ class SpiralServer:
         d = params.poly_len
         self._g2_ntt = ntt.forward(build_gadget(params.n1, params.m2, d,
                                                 self.device))
+        neg_monomial_ntts(d, self.device)   # made once here
 
     # -- stages (spiral_tpu/pir.py _build_stages); the *_batch forms,
     # compose and convert take and give a leading query axis, as the JAX

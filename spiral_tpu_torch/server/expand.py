@@ -12,9 +12,17 @@ tau_t(inverse NTT) is ``inv_ntt_automorph``, one launch of kernel K8a
 (csrc/expand.cu) per round, replacing the Pallas kernel expand_pallas.py
 _auto_call, which the JAX package runs under SPIRAL_AUTO=matmul; on the
 CPU it runs ``inv_ntt_automorph_plain``: the inverse NTT, then the
-coefficient-domain gather ``automorph_raw``.
+coefficient-domain gather ``automorph_raw``.  K8a is K1's inverse on the
+register NTT core (csrc/ntt_reg.cuh) with tau_t applied through shared
+memory before the coalesced store, built for d in
+``kernels.REG_NTT_DEGREES``.
+
+The rounds' constants NTT(x^{-2^r}) are ``neg_monomial_ntts``, transformed
+once per (d, device), as the JAX package builds them at trace time.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -24,6 +32,21 @@ from ..arith import ntt
 from ..core.gadget import gadget_invert_raw
 from ..core.poly import add_raw, automorph_raw, matmul_raw, monomial, \
     scalar_mul_raw
+
+
+@lru_cache(maxsize=None)
+def _neg_monomials(d: int, device: str) -> tuple[torch.Tensor, ...]:
+    monos = torch.cat([monomial(-1, d - (1 << r), d, device)
+                       for r in range(d.bit_length())])
+    return tuple(ntt.forward(monos)[:, 0].unbind(0))
+
+
+def neg_monomial_ntts(d: int, device) -> tuple[torch.Tensor, ...]:
+    """NTT(x^{-2^r}) = NTT(-x^{d - 2^r}) (2, d) for r = 0 .. log2(d): the
+    JAX ``_neg_monomial_ntt`` of every round, made by one forward NTT (one
+    K1 launch on the card) at the first call per (d, device) and the same
+    tensors after it."""
+    return _neg_monomials(d, str(torch.device(device)))
 
 
 def inv_ntt_automorph_plain(x: torch.Tensor, t: int) -> torch.Tensor:
@@ -39,9 +62,9 @@ def inv_ntt_automorph(x: torch.Tensor, t: int) -> torch.Tensor:
     x = x.contiguous()
     d = x.shape[-1]
     kernels.require(x, x.shape, "auto input")
-    if x.shape[-2] != 2 or d & (d - 1) or not 64 <= d <= 2048 or t % 2 == 0:
-        raise ValueError(f"auto kernel takes (..., 2, d), 64 <= d <= 2048 a "
-                         f"power of two, and an odd t; got "
+    if x.shape[-2] != 2 or d not in kernels.REG_NTT_DEGREES or t % 2 == 0:
+        raise ValueError(f"auto kernel takes (..., 2, d), d in "
+                         f"{kernels.REG_NTT_DEGREES}, and an odd t; got "
                          f"{tuple(x.shape)}, t {t}")
     out = torch.empty_like(x)
     n_polys = x.numel() // d
@@ -107,10 +130,10 @@ def coefficient_expansion(cv0: torch.Tensor, g: int, W_left: list,
                         c_auto.reshape(B * n, 2, 1, 2, d).contiguous(), W, m)
         return out.reshape(B, n, 2, 1, 2, d)
 
+    neg = neg_monomial_ntts(d, cv.device)
     for r in range(g):
         t = (d >> r) + 1
-        neg1 = ntt.forward(monomial(-1, d - (1 << r), d, cv.device))[0, 0]
-        cv = torch.cat([cv, scalar_mul_raw(neg1, cv)], dim=1)
+        cv = torch.cat([cv, scalar_mul_raw(neg[r], cv)], dim=1)
         evens, odds = cv[:, 0::2].contiguous(), cv[:, 1::2].contiguous()
         odd_live = stopround == 0 or r <= stopround
         todo = cv if odd_live else evens

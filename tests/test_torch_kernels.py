@@ -36,12 +36,27 @@ def _same(got, want, kernel, launches=1):
     assert kernels.LAUNCHES[kernel] == launches
 
 
+# K1 pairs a limb's polys on its teams, the last alone when their count is
+# odd; any int32 word is reduced on the load
 @pytest.mark.parametrize("d", [256, 2048])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
-def test_ntt_kernel(cuda, d, direction):
-    x = _residues(cuda, (5, 3, d))
+@pytest.mark.parametrize("per_limb", [1, 3, 768])
+def test_ntt_kernel(cuda, d, direction, per_limb):
+    x = torch.randint(0, (1 << 31) - 1, (per_limb, 2, d), generator=cuda,
+                      dtype=torch.int32, device="cuda")
+    x[0, :, :2] = torch.tensor([0, (1 << 31) - 1], dtype=torch.int32)
     _same(getattr(ntt, direction)(x),
           getattr(ntt, direction + "_plain")(x), "ntt")
+
+
+def test_register_ntt_degrees_only(cuda):
+    """K1 and K8a are built for kernels.REG_NTT_DEGREES only."""
+    x = _residues(cuda, (3, 64))
+    for call in (ntt.forward, ntt.inverse,
+                 lambda x: expand.inv_ntt_automorph(x, 65)):
+        with pytest.raises(ValueError):
+            call(x)
+    assert kernels.LAUNCHES["ntt"] == kernels.LAUNCHES["auto"] == 0
 
 
 def test_firstdim_kernel(cuda):
@@ -146,15 +161,19 @@ def test_pack_batch_kernel(cuda):
           pack.pack_ciphertexts_plain(cts, v_W), "pack")
 
 
-# K8a at round 0 (t = d + 1) and round 8 of the expansion (the last round
-# a d = 256 ring has is 7)
-@pytest.mark.parametrize("d", [256, 2048])
-@pytest.mark.parametrize("r", [0, 8])
+# K8a at every expansion round's t = d/2^r + 1 (r = 0 .. 8 at d = 2048,
+# 0 .. 7 at d = 256): 5 cts (10 polys a limb), and 5 polys a limb (the
+# last alone)
+@pytest.mark.parametrize("d, r", [(d, r) for d in (256, 2048)
+                                  for r in range(d.bit_length() - 1)
+                                  if r <= 8])
 def test_auto_kernel(cuda, d, r):
-    t = (d >> min(r, d.bit_length() - 2)) + 1
-    x = _residues(cuda, (5, 2, 1, d))
-    _same(expand.inv_ntt_automorph(x, t),
-          expand.inv_ntt_automorph_plain(x, t), "auto")
+    t = (d >> r) + 1
+    for shape in ((5, 2, 1), (5,)):
+        x = _residues(cuda, shape + (d,))
+        _same(expand.inv_ntt_automorph(x, t),
+              expand.inv_ntt_automorph_plain(x, t), "auto")
+        kernels.reset_launches()
 
 
 @pytest.mark.parametrize("d", [256, 2048])

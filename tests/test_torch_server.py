@@ -96,6 +96,22 @@ def test_expansion_matches_jax(stopround):
         jexpand.reorder_from_stopround(want, 3, 2))
 
 
+@pytest.mark.parametrize("d", [256, 2048])
+def test_expansion_constants_cached(d):
+    """NTT(-x^{d - 2^r}) for every round r, made once per (d, device): the
+    plain forward NTT of the monomial, and the same tensors on a second
+    call."""
+    from spiral_tpu_torch.arith import ntt
+    from spiral_tpu_torch.core.poly import monomial
+    got = expand.neg_monomial_ntts(d, "cpu")
+    assert len(got) == d.bit_length()
+    for r, c in enumerate(got):
+        assert torch.equal(c, ntt.forward_plain(
+            monomial(-1, d - (1 << r), d, "cpu"))[0, 0])
+    again = expand.neg_monomial_ntts(d, torch.device("cpu"))
+    assert all(a is b for a, b in zip(got, again))
+
+
 def test_conversion_matches_jax():
     p, tp = _params(t_gsw=3)
     rng = np.random.default_rng(21)
