@@ -13,8 +13,9 @@ Phases, each printing its own lines and its wall time:
   3. each kernel against its plain PyTorch version on the card, for bit
      equality, with both times and the kernel's bound: K1-K4 at the
      spiral_20_256 shapes; K1, K2, K4, K6 and K7 at the spiralpack_20_256
-     shapes; K5 (both forms) and K2 batched at B = 8 of both paths, K2
-     chunked at the spiral_24_256 slab, and K3, K4, K5 at spiral_24_256's
+     shapes; K5 (both forms) and K2 batched at B = 8 of both paths (and
+     at B = 2, 3, 4 and 16 on the spiral_20_256 database), K2 chunked at
+     the spiral_24_256 slab, and K3, K4, K5 at spiral_24_256's
      new digit widths; K8a at the first and the largest expansion round
      of spiral_20_256, one query's and a batch's, K8b's two kernels at
      fold rounds 1 (t_gsw 9 and 8) and the last, and at spiral_24_256's
@@ -76,10 +77,13 @@ import torch
 # reductions and the CRT lifts are not counted).
 HBM_BYTES_PER_S = 3.35e12
 INT_PRODUCTS_PER_S = 132 * 64 * 1.98e9
-# K8b-2's int8 multiply-adds run on the tensor cores: the H100 SXM's dense
-# int8 peak, 1,979 TOPS (NVIDIA H100 data sheet), counts two operations
-# per multiply-add
+# K8b-2's and K2's int8 multiply-adds run on the tensor cores: the H100
+# SXM's dense int8 peak, 1,979 TOPS (NVIDIA H100 data sheet), counts two
+# operations per multiply-add
 INT8_MACS_PER_S = 1979e12 / 2
+# K2's work is counted at the card's cheapest exact route: a modular
+# product of two 32-bit words as 16 int8 multiply-adds of 8-bit limbs
+K2_MACS_PER_PRODUCT = 16
 
 # kernel -> (its CUDA source, the TPU kernel's function it replaces)
 KERNEL_META = {
@@ -107,6 +111,11 @@ KERNEL_META = {
                       "spiral_tpu/server/fold_pallas.py:766"),
 }
 KERNEL_NOTES = {
+    "firstdim": "two forms on the int8 tensor cores, by the pass's query "
+                "rows: the one-query cases (3 or 2 rows) run the "
+                "prescaled form, the batches of 8 (24 or 16 rows) the "
+                "pair form; bound counts 16 int8 MACs per modular product "
+                "and the slab once per chunk",
     "fold_contract": "replaces an XLA dot_general (_fold_contract_mxu, "
                      "with the prescale _fold_qpre), not a pallas_call: "
                      "the JAX mxu fold's contraction outside its Pallas "
@@ -126,9 +135,11 @@ FOLD_FORCED = (("K3 every round", 0, ("fold",), ("fold_ntt",
                ("K8b every round", 1 << 30, ("fold_ntt", "fold_contract"),
                 ("fold",)))
 BATCH = 8
-# a kernel whose mean over back-to-back launches is below this is timed
-# again as the replay of a CUDA graph of those launches
+# a kernel whose mean over back-to-back launches is below this (the least
+# of TIMINGS event timings) is timed again as the replay of a CUDA graph of
+# those launches
 GRAPH_BELOW_MS = 0.1
+TIMINGS = 3
 
 
 def card_line() -> str:
@@ -147,17 +158,20 @@ def _events_ms(run) -> float:
     return start.elapsed_time(end)
 
 
-def cuda_ms(fn, reps: int) -> tuple[float, str]:
+def cuda_ms(fn, reps: int, timings: int = TIMINGS) -> tuple[float, str]:
     """Mean ms of fn() over reps launches, CUDA events, after one warm-up,
-    and how it was timed.  Below GRAPH_BELOW_MS the back-to-back launches
-    may time the host's enqueue gaps, so the reps are captured in a CUDA
-    graph and its replay is timed instead ("graph")."""
+    the least of `timings` such timings, and how it was timed.  Below
+    GRAPH_BELOW_MS the back-to-back launches may time the host's enqueue
+    gaps, so the reps are captured in a CUDA graph and its replay is timed
+    instead ("graph"), again the least of `timings`.  The least, not one
+    mean, decides: a host stall in one timing does not hide a short
+    kernel's time."""
     def loop():
         for _ in range(reps):
             fn()      # each output is freed before the next launch
 
     fn()
-    ms = _events_ms(loop) / reps
+    ms = min(_events_ms(loop) for _ in range(timings)) / reps
     if ms >= GRAPH_BELOW_MS:
         return ms, "events"
     side = torch.cuda.Stream()
@@ -169,7 +183,8 @@ def cuda_ms(fn, reps: int) -> tuple[float, str]:
     with torch.cuda.graph(graph):
         loop()
     graph.replay()
-    return _events_ms(graph.replay) / reps, "graph"
+    return min(_events_ms(graph.replay) for _ in range(timings)) / reps, \
+        "graph"
 
 
 def rand_residues(gen, shape, limb_axis: int = -2):
@@ -225,8 +240,8 @@ def check_kernels(seed: int) -> dict:
     qk = rand_residues(gen, (K, n1, d))
     cases.append(("firstdim", "firstdim",
                   lambda: firstdim.multiply_query_by_db(db, qk),
-                  lambda: firstdim.multiply_plain(db, qk), 5, [db, qk],
-                  2 * d * K * m * n1))
+                  lambda: firstdim.multiply_plain(db, qk), 5, [db, qk], 0,
+                  K2_MACS_PER_PRODUCT * 2 * d * K * m * n1))
     # K3, first fold round, both digit widths
     cts = rand_residues(gen, (params.num_per, n1, n2, d))
     for name in ("spiral_20_256", "spiral_20_256_paper"):
@@ -300,7 +315,7 @@ def check_kernels(seed: int) -> dict:
     cases.append(("firstdim_pack", "firstdim",
                   lambda: firstdim.multiply_query_by_db(pdb, pqk),
                   lambda: firstdim.multiply_plain(pdb, pqk), 5, [pdb, pqk],
-                  2 * d * Kp * mp * 2))
+                  0, K2_MACS_PER_PRODUCT * 2 * d * Kp * mp * 2))
     # K7, out_n 4, m_conv 4
     on, mc = pp.out_n, pp.m_conv
     rcts = rand_residues(gen, (T, 2, 1, d))
@@ -329,7 +344,7 @@ def check_kernels(seed: int) -> dict:
         ops_ms = max(prods / INT_PRODUCTS_PER_S, macs / INT8_MACS_PER_S) * 1e3
         ms, timed_by = cuda_ms(run, reps)
         rec = {"max_abs_err": err, "ms": ms, "timed_by": timed_by,
-               "plain_ms": cuda_ms(plain, 1)[0],
+               "plain_ms": cuda_ms(plain, 1, 1)[0],
                "bound_ms": max(mem_ms, ops_ms),
                "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
                "bytes": nbytes, "products": prods, "int8_macs": macs,
@@ -391,19 +406,27 @@ def batch_cases(gen) -> list:
         t = preset(name).t_gsw
         cases.append(fold_case(f"t{t}", t, T * pp.num_per // 2,
                                (T, pp.num_per)))
-    # K2 over B queries: G = 24 rows (Spiral) and 16 (pack)
-    for tag, K, m, rows in (("spiral", sp.dim0 * sp.n0, sp.num_per * n2, n1),
-                            ("pack", pp.dim0, T * pp.num_per, 2)):
+    # K2 over B queries: G = 24 rows (Spiral) and 16 (pack); the Spiral
+    # database also at B = 2, 3, 4 and 16, around the rule that picks K2's
+    # form from the query rows (csrc/firstdim.cu)
+    for tag, K, m, rows, bs in (
+            ("spiral", sp.dim0 * sp.n0, sp.num_per * n2, n1, (B, 2, 3, 4, 16)),
+            ("pack", pp.dim0, T * pp.num_per, 2, (B,))):
         db = rand_residues(gen, (d, K, m), 0)
-        qk = rand_residues(gen, (B, K, rows, d))
-        cases.append((f"firstdim_batch_{tag}", "firstdim",
-                      lambda db=db, qk=qk: firstdim.multiply_query_by_db_batch(
-                          db, qk),
-                      lambda db=db, qk=qk: firstdim.multiply_batch_plain(
-                          db, qk), 5, [db, qk], 2 * d * K * m * B * rows))
+        for qb in bs:
+            qk = rand_residues(gen, (qb, K, rows, d))
+            cases.append((f"firstdim_batch_{tag}" +
+                          (f"_b{qb}" if qb != B else ""), "firstdim",
+                          lambda db=db, qk=qk:
+                          firstdim.multiply_query_by_db_batch(db, qk),
+                          lambda db=db, qk=qk: firstdim.multiply_batch_plain(
+                              db, qk), 5, [db, qk], 0,
+                          K2_MACS_PER_PRODUCT * 2 * d * K * m * qb * rows))
         del db
     # K2 chunked over the spiral_24_256 slab (64 rows x n2, 2 GiB), two
-    # chunks, one query and B; the run streams it num_chunks times
+    # chunks, one query and B; each chunk streams the slab from device
+    # memory, as a database of num_chunks slabs would, so its bytes count
+    # once per chunk
     K24 = big.dim0 * big.n0
     m24 = slab_rows(big.num_per, n2 * K24 * 2 * d * 4, 2 << 30) * n2
     slab = rand_residues(gen, (d, K24, m24), 0)
@@ -413,8 +436,8 @@ def batch_cases(gen) -> list:
                       lambda qk=qk: firstdim.multiply_query_by_db_batch(
                           slab, qk, 2),
                       lambda qk=qk: firstdim.multiply_batch_plain(
-                          slab, qk, 2), 5, [slab, qk],
-                      2 * 2 * d * K24 * m24 * qb * n1))
+                          slab, qk, 2), 5, [slab, slab, qk], 0,
+                      K2_MACS_PER_PRODUCT * 2 * 2 * d * K24 * m24 * qb * n1))
     # K1 on the first-dim output of a Spiral batch
     x = rand_residues(gen, (B * sp.num_per * n1 * n2, d))
     cases.append(("ntt_inverse_batch", "ntt", lambda: ntt.inverse(x),

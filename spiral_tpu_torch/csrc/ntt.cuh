@@ -1,5 +1,5 @@
 // Negacyclic NTT of one length-d polynomial held in shared memory, the
-// radix-2 network of K7 (pack.cu) and K8b-1 (fold_mxu.cu).  K1, K3-K6, K4
+// radix-2 network of K8b-1 (fold_mxu.cu), its last user.  K1, K3-K7, K4
 // and K8a run the register core of ntt_reg.cuh instead.
 //
 // Tables (spiral_tpu_torch/arith/tables.py NttTables.packed, int32 rows):

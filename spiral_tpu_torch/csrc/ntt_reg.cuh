@@ -1,8 +1,8 @@
 // Register-resident negacyclic NTT for Hopper: the core of the batched NTT
 // K1 (ntt.cu), of the expansion's inverse NTT + automorphism K8a and key
-// switch K4 (expand.cu), and of the fold template K3/K5/K6 (fold.cu).
-// The radix-2 network of ntt.cuh is left to K7 (pack.cu) and K8b-1
-// (fold_mxu.cu).
+// switch K4 (expand.cu), of the fold template K3/K5/K6 (fold.cu) and of
+// the packing K7 (pack.cu).  The radix-2 network of ntt.cuh is left to
+// K8b-1 (fold_mxu.cu).
 //
 // It replaces no TPU kernel of its own: the Pallas kernels that these
 // kernels replace (spiral_tpu/arith/ntt_pallas.py CrtNttPallas._run,

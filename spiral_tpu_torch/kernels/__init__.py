@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # ring degrees the kernels on the register NTT (csrc/ntt_reg.cuh: K1,
-# K3-K6, K4 and K8a) are built for, one instance each: the presets' 256 and
+# K3-K7, K4 and K8a) are built for, one instance each: the presets' 256 and
 # 2048; their wrappers raise on any other
 REG_NTT_DEGREES = (256, 2048)
 

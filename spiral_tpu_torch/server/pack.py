@@ -7,10 +7,11 @@ src/testing.cpp:198-241 pack()).
 
 with unsigned base-2^bits digits of the m_conv-digit gadget, trial (r, c)
 at index r*out_n + c.  On CUDA tensors this is one launch of kernel K7
-(csrc/pack.cu), which replaces the Pallas packing kernel
-(spiral_tpu/server/pack_pallas.py _pack_call); on the CPU it runs
-``pack_ciphertexts_plain``.  A batch of B queries' results (a leading
-query axis) packs in the same single launch, one grid row per query.
+(csrc/pack.cu, on the register NTT core, d = 256 or 2048), which replaces
+the Pallas packing kernel (spiral_tpu/server/pack_pallas.py _pack_call);
+on the CPU it runs ``pack_ciphertexts_plain``.  A batch of B queries'
+results (a leading query axis) packs in the same single launch, one grid
+layer per query.
 """
 from __future__ import annotations
 
@@ -51,9 +52,10 @@ def pack_ciphertexts(result_cts: torch.Tensor,
                     "pack cts")
     kernels.require(v_W, (out_n, out_n + 1, m_conv, 2, d), "pack v_W")
     if out_n not in (2, 4, 8) or not 1 <= m_conv <= 56 or \
-            not 64 <= d <= 2048 or d & (d - 1):
+            d not in kernels.REG_NTT_DEGREES:
         raise ValueError(f"pack kernel takes out_n 2, 4 or 8, m_conv <= 56 "
-                         f"and 64 <= d <= 2048; got v_W {tuple(v_W.shape)}")
+                         f"and d in {kernels.REG_NTT_DEGREES}; got v_W "
+                         f"{tuple(v_W.shape)}")
     out = torch.empty((B,) * batched + (out_n + 1, out_n, 2, d),
                       dtype=torch.int32, device=v_W.device)
     kernels.check(kernels.lib().spiral_pack(

@@ -113,13 +113,19 @@ def test_pack_kernel(cuda, out_n, m_conv):
           pack.pack_ciphertexts_plain(cts, v_W), "pack")
 
 
-# B queries of n1 rows: one pass takes the queries whose rows fit 96 KB of
-# shared memory (all 8 at K = 512; 4 of 11 at K = 2,048, so three passes);
-# chunked (the implicit mode) with a roll of the query per chunk; m = 100
-# is not a multiple of 4, so a thread takes one column instead of four
+# B queries of n1 rows: one pass takes at most 16 queries and 64 rows (8
+# query tiles of the MMA), so 11 queries at K = 2,048 run in one pass and
+# 17 in two; chunked (the implicit mode) with a roll of the query per
+# chunk; m = 100 is no multiple of the 16-column tile, m = 102 no multiple
+# of 4 either (the stage fills with 4-byte copies)
 @pytest.mark.parametrize("B, n1, K, m, chunks", [
     (8, 3, 512, 128, 1), (8, 2, 512, 128, 1), (11, 3, 2048, 128, 1),
-    (2, 3, 512, 128, 3), (8, 3, 1024, 128, 2), (3, 2, 256, 100, 2)])
+    (2, 3, 512, 128, 3), (8, 3, 1024, 128, 2), (3, 2, 256, 100, 2),
+    (1, 3, 64, 256, 1), (1, 1, 1024, 100, 3), (1, 4, 64, 102, 2),
+    (8, 1, 64, 2048, 1), (8, 4, 1024, 102, 1), (8, 2, 64, 100, 3),
+    (16, 3, 1024, 128, 1), (16, 4, 64, 102, 2), (16, 2, 1024, 100, 3),
+    (16, 1, 64, 256, 1), (17, 3, 64, 256, 1), (17, 2, 1024, 100, 3),
+    (17, 4, 64, 102, 2), (17, 1, 1024, 128, 1)])
 def test_firstdim_batch_kernel(cuda, B, n1, K, m, chunks):
     d = 64
     db = _residues(cuda, (d, K, m)).permute(2, 0, 1, 3).contiguous()
@@ -127,8 +133,38 @@ def test_firstdim_batch_kernel(cuda, B, n1, K, m, chunks):
     _same(firstdim.multiply_query_by_db_batch(db, qk, chunks),
           firstdim.multiply_batch_plain(db, qk, chunks), "firstdim",
           firstdim.passes(B, K, n1))
-    assert firstdim.passes(11, 2048, 3) == 3
+    assert firstdim.passes(11, 2048, 3) == 1
     assert firstdim.passes(8, 1024, 3) == 1
+    assert firstdim.passes(16, 1024, 4) == 1
+    assert firstdim.passes(17, 64, 3) == 2
+
+
+# worst-case words at the largest K the kernel takes: every word p - 1 and
+# every word 2^32 - 1 (int32 -1; the plain version then gets the words
+# reduced mod p, which is what K2 computes with); one K more raises
+@pytest.mark.parametrize("word", ["p-1", "2^32-1"])
+@pytest.mark.parametrize("B, n1", [(1, 3), (8, 3), (17, 2)])
+def test_firstdim_kernel_worst_words(cuda, word, B, n1):
+    d, K, m = 4, firstdim.K_MAX, 36
+    mods = torch.tensor([P_I, B_I], device="cuda")
+    if word == "p-1":
+        db = (mods - 1).view(2, 1, 1, 1).expand(2, d, K, m).int().contiguous()
+        qk = (mods - 1).view(2, 1).expand(B, K, n1, 2, d).int().contiguous()
+        db_r, qk_r = db, qk
+    else:
+        db = torch.full((2, d, K, m), -1, dtype=torch.int32, device="cuda")
+        qk = torch.full((B, K, n1, 2, d), -1, dtype=torch.int32,
+                        device="cuda")
+        db_r = ((1 << 32) - 1) % mods.view(2, 1, 1, 1).expand(2, d, K, m)
+        qk_r = ((1 << 32) - 1) % mods.view(2, 1).expand(B, K, n1, 2, d)
+        db_r, qk_r = db_r.int().contiguous(), qk_r.int().contiguous()
+    _same(firstdim.multiply_query_by_db_batch(db, qk, 2),
+          firstdim.multiply_batch_plain(db_r, qk_r, 2), "firstdim",
+          firstdim.passes(B, K, n1))
+    big = torch.zeros((2, d, K + 1, 4), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        firstdim.multiply_query_by_db(big, torch.zeros(
+            (K + 1, 1, 2, d), dtype=torch.int32, device="cuda"))
 
 
 @pytest.mark.parametrize("m_out", [1, 2, 5])
@@ -151,6 +187,29 @@ def test_fold_pack_batch_kernel(cuda, t_gsw, B, m_out):
     qn, qp = (_residues(cuda, (B, 2, 2 * t_gsw, d)) for _ in range(2))
     _same(fold.fold_pack_round_batch(cts, qn, qp, t_gsw),
           fold.fold_pack_round_plain(cts, qn, qp, t_gsw), "fold_pack_batch")
+
+
+# K7 runs a cluster of out_n blocks per (column, limb), block r through
+# trial row r's m_conv + 1 NTTs two at a time (an odd count leaves a last
+# step of one poly)
+@pytest.mark.parametrize("d", [256, 2048])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("m_conv", [1, 4, 56])
+@pytest.mark.parametrize("out_n", [2, 4, 8])
+def test_pack_kernel_shapes(cuda, out_n, m_conv, B, d):
+    cts = _residues(cuda, (B, out_n * out_n, 2, 1, d))
+    v_W = _residues(cuda, (out_n, out_n + 1, m_conv, d))
+    _same(pack.pack_ciphertexts(cts, v_W),
+          pack.pack_ciphertexts_plain(cts, v_W), "pack")
+
+
+def test_pack_kernel_degrees_only(cuda):
+    """K7 is built for kernels.REG_NTT_DEGREES only."""
+    cts = _residues(cuda, (4, 2, 1, 64))
+    v_W = _residues(cuda, (2, 3, 4, 64))
+    with pytest.raises(ValueError):
+        pack.pack_ciphertexts(cts, v_W)
+    assert kernels.LAUNCHES["pack"] == 0
 
 
 def test_pack_batch_kernel(cuda):
