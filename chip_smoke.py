@@ -19,17 +19,19 @@ Phases, each printing its own lines and its wall time:
      new digit widths; K8a at the first and the largest expansion round
      of spiral_20_256, one query's and a batch's, K8b's two kernels at
      fold rounds 1 (t_gsw 9 and 8) and the last, and at spiral_24_256's
-     round 1 (t_gsw 11); K3, K4 and K6 at the edges of their clusters
-     (one ct, m_out 1 and 5, t_gsw 8, 9 and 11); then every fold round of
-     spiral_20_256 (t_gsw 9) and spiral_24_256 (t_gsw 11), and round 1 at
-     t_gsw 8, as K3 and as a K8b round (K8b-1, K8b-2, K1) on the same
-     inputs, both times on one line with the engine the fold picks for it;
+     round 1 (t_gsw 11), and K8b-2 at round 1 on p - 1 in every word;
+     K3, K4 and K6 at the edges of their clusters (one ct, m_out 1 and 5,
+     t_gsw 8, 9 and 11); then every fold round of spiral_20_256 (t_gsw
+     9) and spiral_24_256 (t_gsw 11), and round 1 at t_gsw 8, as K3 and
+     as a K8b round (K8b-1, K8b-2, K1) on the same inputs, both times on
+     one line with the engine the fold picks for it;
   3b. K4 at each of the expansion's launches of one spiral_20_256 query
      (16) and one spiral_24_256 query (18), each held bit-equal to its
      plain version and timed, with the sum per query;
   3c. K1 at each of its 7 launches in one spiral_20_256 query (the
      expansion's constants cached: the query's a, composition,
-     conversion, first dim) and K8a at each of its 9 (one per expansion
+     conversion, first dim; and one closing each fold round that runs
+     K8b, none at spiral_20_256) and K8a at each of its 9 (one per expansion
      round), each held bit-equal to its plain version and timed, with the
      sums and bounds per query (--kernels-only stops here and prints the
      phase 3-3c JSON);
@@ -47,7 +49,8 @@ Phases, each printing its own lines and its wall time:
   5. SpiralPack, the same at tiny_pack and spiralpack_20_256 (2^20 x 256 B
      as 8,192 records of 4 x 4 polys), after the Spiral database is freed;
   6. the implicit huge-database mode at spiral_24_256 (2^24 x 256 B
-     served from a 2 GiB random slab streamed 32 times): one query and a
+     served from a 2 GiB random slab streamed 32 times): one query (served
+     twice: the first also pays for the fold's first device memory) and a
      batch of 8 holding it, whose rows for it must equal the single run's
      (the answers cannot decode: the slab is random); then that query
      with the fold forced to K3 and to K8b in every round, whose rows must
@@ -59,6 +62,7 @@ line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import subprocess
@@ -121,19 +125,21 @@ KERNEL_NOTES = {
                      "the JAX mxu fold's contraction outside its Pallas "
                      "kernel _fold_ntt_call",
 }
-# the default fold runs K3 in every round (fold.MXU_MAX_K3_BLOCKS = 0);
-# K8b-1 and K8b-2 run in the forced runs (FOLD_FORCED) and phase 3
+# the default single-query fold runs K8b-1 and K8b-2 in its large rounds
+# at t_gsw 11 (fold.round_uses_mxu: rounds 1-4 at spiral_24_256, none at
+# spiral_20_256) and K3 in the others
 SPIRAL_PATH = ("ntt", "firstdim", "fold", "expand", "auto")
+IMPLICIT_PATH = SPIRAL_PATH + ("fold_ntt", "fold_contract")
 PACK_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack", "pack")
 SPIRAL_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_batch")
 PACK_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack_batch",
                    "pack")
-# the fold's engine forced in every round: (tag, MXU_MAX_K3_BLOCKS, the
+# the fold's engine forced in every round: (tag, fold.MXU_MIN_COLS, the
 # kernels it must launch, the kernels it must not)
-FOLD_FORCED = (("K3 every round", 0, ("fold",), ("fold_ntt",
-                                                 "fold_contract")),
-               ("K8b every round", 1 << 30, ("fold_ntt", "fold_contract"),
-                ("fold",)))
+FOLD_FORCED = (("K3 every round", {}, ("fold",), ("fold_ntt",
+                                                  "fold_contract")),
+               ("K8b every round", collections.defaultdict(int),
+                ("fold_ntt", "fold_contract"), ("fold",)))
 BATCH = 8
 # a kernel whose mean over back-to-back launches is below this (the least
 # of TIMINGS event timings) is timed again as the replay of a CUDA graph of
@@ -481,8 +487,9 @@ def mxu_cases(gen) -> list:
     stopround: the 256 even cts, t = 9), that round also for a batch of
     BATCH queries; K8b-1 and K8b-2 at fold round 1 (m_out 64) at t_gsw 9
     and 8, at the last round (m_out 1), and at spiral_24_256's round 1
-    (t_gsw 11, m_out 1,024: G is 2.2 GB)."""
-    from spiral_tpu_torch.params import preset
+    (t_gsw 11, m_out 1,024: G is 2.2 GB); K8b-2 at round 1 (t_gsw 9) on
+    p - 1 in every word of G and q, its largest limb sums."""
+    from spiral_tpu_torch.params import B_I, P_I, preset
     from spiral_tpu_torch.server import expand, fold
 
     sp, big = preset("spiral_20_256"), preset("spiral_24_256")
@@ -519,6 +526,20 @@ def mxu_cases(gen) -> list:
                       lambda G=G, qn=qn, qp=qp, t=t: fold.fold_contract_plain(
                           G, qn, qp, t), 5, [G, qn, qp], 0,
                       2 * d * (4 * n1) * (8 * t * n1) * (m_out * n2)))
+    t, m_out = sp.t_gsw, sp.num_per // 2
+    G = torch.empty((2, 2, t, m_out, n1 * n2, d), dtype=torch.int32,
+                    device="cuda")
+    qn, qp = (torch.empty((n1, t * n1, 2, d), dtype=torch.int32,
+                          device="cuda") for _ in range(2))
+    for x, limb in ((G[0], 0), (G[1], 1), (qn[..., 0, :], 0),
+                    (qn[..., 1, :], 1), (qp[..., 0, :], 0),
+                    (qp[..., 1, :], 1)):
+        x.fill_((P_I, B_I)[limb] - 1)
+    cases.append((f"fold_contract_t{t}_worst", "fold_contract",
+                  lambda: fold.fold_contract(G, qn, qp, t),
+                  lambda: fold.fold_contract_plain(G, qn, qp, t), 5,
+                  [G, qn, qp], 0,
+                  2 * d * (4 * n1) * (8 * t * n1) * (m_out * n2)))
     return cases
 
 
@@ -618,17 +639,23 @@ def time_expand_launches(gen) -> dict:
 def k1_launches(name: str) -> list[tuple[str, str, int]]:
     """The K1 launches of one query at a Spiral preset, in the order
     process_query makes them, the expansion's constants being made once
-    per server: (stage, direction, polys per limb)."""
+    per server: (stage, direction, polys per limb); the fold rounds that
+    run K8b close with a K1 inverse each."""
     from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.server import fold
     p = preset(name)
     n_gsw = p.further_dims * p.t_gsw
+    outs = [p.num_per >> (r + 1) for r in range(p.nu_2)]
     return [("query a", "forward", 1),
             ("composition", "inverse", p.dim0 * 2),
             ("composition", "forward", p.dim0 * p.m_conv),
             ("conversion", "inverse", n_gsw * 2),
             ("conversion", "forward", n_gsw * p.m_conv),
             ("conversion", "forward", n_gsw * p.m_conv),
-            ("first dim", "inverse", p.num_per * p.n1 * p.n2)]
+            ("first dim", "inverse", p.num_per * p.n1 * p.n2)] + \
+        [(f"fold round {r + 1}", "inverse", m_out * p.n1 * p.n2)
+         for r, m_out in enumerate(outs)
+         if fold.round_uses_mxu(m_out, p.n1, p.n2, p.t_gsw)]
 
 
 def auto_launches(name: str) -> list[tuple[int, int, int]]:
@@ -717,7 +744,8 @@ def compare_fold_rounds(gen) -> dict:
             ms = [cuda_ms(f, 5) for f in (k3, mxu, mxu, k3)]
             k3_ms = (ms[0][0] + ms[3][0]) / 2
             mxu_ms = (ms[1][0] + ms[2][0]) / 2
-            picked = "K8b" if fold.round_uses_mxu(m_out, n2) else "K3"
+            picked = "K8b" if fold.round_uses_mxu(m_out, n1, n2, t) \
+                else "K3"
             sums["k3"] += k3_ms
             sums["mxu"] += mxu_ms
             sums["picked"] += mxu_ms if picked == "K8b" else k3_ms
@@ -830,11 +858,11 @@ def run_fold_forced(tag: str, server, answered: list, card: str,
     from spiral_tpu_torch import kernels
     from spiral_tpu_torch.server import fold
 
-    limit = fold.MXU_MAX_K3_BLOCKS
+    rule = fold.MXU_MIN_COLS
     launches, per_query = {}, {}
-    for forced, max_blocks, must, must_not in FOLD_FORCED:
+    for forced, forced_rule, must, must_not in FOLD_FORCED:
         ftag = f"{tag} fold {forced}"
-        fold.MXU_MAX_K3_BLOCKS = max_blocks
+        fold.MXU_MIN_COLS = forced_rule
         try:
             kernels.reset_launches()
             for idx, q, want in answered:
@@ -855,7 +883,7 @@ def run_fold_forced(tag: str, server, answered: list, card: str,
                     raise SystemExit(f"{ftag} query {idx}: rows equal to the "
                                      f"default server's={same}, decodes={ok}")
         finally:
-            fold.MXU_MAX_K3_BLOCKS = limit
+            fold.MXU_MIN_COLS = rule
         launches[ftag], per_query[ftag] = dict(kernels.LAUNCHES), pq
         if not all(launches[ftag][k] for k in must) or \
                 any(launches[ftag][k] for k in must_not):
@@ -961,11 +989,11 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
 
 def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
     """The implicit huge-database mode at a full-size preset: a random slab
-    of at most 2 GiB streamed num_chunks times, one query, then a batch of
-    BATCH queries that holds it; the batch's rows for that query must equal
-    the single run's; then that query with the fold forced to one engine
-    (run_fold_forced).  Returns ({path: launches}, {path: launches of its
-    last query})."""
+    of at most 2 GiB streamed num_chunks times, one query, served twice
+    (equal rows), then a batch of BATCH queries that holds it; the batch's
+    rows for that query must equal the single run's; then that query with
+    the fold forced to one engine (run_fold_forced).  Returns ({path:
+    launches}, {path: launches of its last query})."""
     from spiral_tpu_torch import kernels
     from spiral_tpu_torch.params import preset
     from spiral_tpu_torch.pir import SpiralClient, SpiralServer
@@ -1002,9 +1030,21 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
           f"{tm.total_us / 1e3:.3f} ms (cuda events) "
           f"{db_bytes / tm.total_us:.1f} MB/s stages_us={stages} "
           f"launches={single} [{card}]", flush=True)
-    if not all(single[k] for k in SPIRAL_PATH):
+    if not all(single[k] for k in IMPLICIT_PATH):
         raise SystemExit(f"{name} implicit: a kernel of the path was never "
                          f"launched")
+    # the same query again: the server made the fold's K8b storage (G, 2.2
+    # GB in round 1) when it was built, so the first query must not pay
+    # for it: the two fold stages should agree
+    again, tm = server.process_query(qs[0])
+    stages = {k: round(v, 1) for k, v in vars(tm).items()}
+    print(f"{name} implicit query idx={bidx[0]} again: rows equal the first "
+          f"run's={same_rows(again, resp)} server {tm.total_us / 1e3:.3f} ms "
+          f"(cuda events) {db_bytes / tm.total_us:.1f} MB/s "
+          f"stages_us={stages} [{card}]", flush=True)
+    if not same_rows(again, resp):
+        raise SystemExit(f"{name} implicit: a second run of the query gave "
+                         f"other rows")
     kernels.reset_launches()
     resps, seconds = server.process_query_batch(qs)
     batch = dict(kernels.LAUNCHES)

@@ -25,7 +25,7 @@ from .tables import ntt_tables
 
 @lru_cache(maxsize=None)
 def _tables(d: int, device: str):
-    """The plain version's tables on `device`, then the (10, d) int32
+    """The plain version's tables on `device`, then the (9, d) int32
     table the CUDA kernels read (arith/tables.py packed())."""
     tb = ntt_tables(d)
     as_t = lambda a: torch.from_numpy(a).to(device)
@@ -35,7 +35,8 @@ def _tables(d: int, device: str):
 
 
 def kernel_table(d: int, device) -> torch.Tensor:
-    """The packed table for K1, K3 and K4 at degree d on `device`."""
+    """The packed table of the register-NTT kernels at degree d on
+    `device`."""
     return _tables(d, str(device))[-1]
 
 

@@ -1,6 +1,6 @@
-"""Negacyclic NTT tables (host numpy) for the radix-2 NTT in the JAX
-``mxu`` slot order (counterpart of spiral_tpu/arith/tables.py, which
-cannot be imported without jax).
+"""Negacyclic NTT tables (host numpy): the plain radix-2 NTT's and the
+CUDA kernels' register NTT's, in the JAX ``mxu`` slot order (counterpart
+of spiral_tpu/arith/tables.py, which cannot be imported without jax).
 
 The transform is x -> X with X[k] = sum_i x_i psi^{(2k+1) i}, psi the
 primitive 2d-th root of unity g^{(p-1)/2d} for the smallest primitive root
@@ -17,6 +17,9 @@ from functools import lru_cache
 import numpy as np
 
 from .mod import MODS
+
+# rows of NttTables.packed (reg::ROW_POS and reg::ROW_REG in ntt_reg.cuh)
+ROW_POS, ROW_REG = 0, 1
 
 
 def _factorize(n: int) -> list[int]:
@@ -73,16 +76,10 @@ class NttTables:
     psi_inv_rev: np.ndarray  # (2, d) psi^-bitrev(k); entry 0 holds d^{-1}
 
     def packed(self) -> np.ndarray:
-        """(18, d) int32 table the CUDA kernels read, u32 bit patterns:
-        rows li*4 + r for r = twist, untwist, omega, omega_inv; row 8
-        pos_of_slot, row 9 slot_of_pos (ntt.cuh); rows 10 + li*4 + r for
-        r = psi_rev, its Shoup companions, psi_inv_rev, its companions
-        (ntt_reg.cuh)."""
-        rows = []
-        for li in range(2):
-            rows += [self.twist[li], self.untwist[li], self.omega[li],
-                     self.omega_inv[li]]
-        rows += [self.pos_of_slot, self.slot_of_pos]
+        """(9, d) int32 table the CUDA kernels read (csrc/ntt_reg.cuh), u32
+        bit patterns: row ROW_POS pos_of_slot; rows ROW_REG + li*4 + r for
+        r = psi_rev, its Shoup companions, psi_inv_rev, its companions."""
+        rows = [self.pos_of_slot]
         for li, p in enumerate(MODS):
             rows += [self.psi_rev[li], shoup(self.psi_rev[li], p),
                      self.psi_inv_rev[li], shoup(self.psi_inv_rev[li], p)]

@@ -90,9 +90,7 @@
 // about 0.5 ms at the ~440 T/s that mma.sync reaches on this card), so a
 // batch of 8 would be bound by the bytes; the kernel is held back by issue
 // and latency (PERF.md).
-#include <cudaTypedefs.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 using namespace spiral;
 
@@ -113,50 +111,6 @@ constexpr int K_MAX = 8256;       // 4 K 255^2 < 2^31
 constexpr int SMEM_SM = 220 * 1024;
 constexpr int STAGE_DB_WORDS = 4096;   // a stage's database rows: 16 KB
 constexpr int BOX = 32;           // database columns of a TMA box: 128 B
-
-// 2^(8i) mod p and its Shoup companion floor(2^(8i) mod p * 2^32 / p),
-// folded at compile time
-__host__ __device__ constexpr uint32_t weight(uint32_t p, int i) {
-  return (uint32_t)((1ull << (8 * i)) % p);
-}
-__host__ __device__ constexpr uint32_t weight_shoup(uint32_t p, int i) {
-  return (uint32_t)(((uint64_t)weight(p, i) << 32) / p);
-}
-
-__device__ __forceinline__ uint32_t shoup(uint32_t a, uint32_t w,
-                                          uint32_t ws, uint32_t p) {
-  return a * w - __umulhi(a, ws) * p;   // [0, 2p) for any a < 2^32
-}
-
-template <int I>
-__device__ __forceinline__ uint32_t times_weight(uint32_t a, int li) {
-  return li ? shoup(a, weight(B_I, I), weight_shoup(B_I, I), B_I)
-            : shoup(a, weight(P_I, I), weight_shoup(P_I, I), P_I);
-}
-
-// Bytes j of four words -> word j holds (w0.j, w1.j, w2.j, w3.j).
-__device__ __forceinline__ uint4 bytes_t(uint32_t w0, uint32_t w1,
-                                         uint32_t w2, uint32_t w3) {
-  const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
-  const uint32_t t1 = __byte_perm(w0, w1, 0x7362);
-  const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
-  const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
-  return make_uint4(__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-                    __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632));
-}
-
-__device__ __forceinline__ void mma_u8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src,
                                           bool ok) {
@@ -184,50 +138,6 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
     case 5: cp_async_wait<5>(); break;
     default: cp_async_wait<6>(); break;
   }
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
-// `bytes` contiguous bytes by the bulk copy engine, completion counted on
-// the mbarrier bar (both addresses and the size 16-byte multiples).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// One TMA box of a 3-D tensor map at (c0, c1, c2), completion counted on
-// the mbarrier bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar)) : "memory");
 }
 
 // Word (r, w) of a stage's database rows (row r, tile column w): boxes of
@@ -325,7 +235,7 @@ firstdim_kernel(const __grid_constant__ CUtensorMap db_map,
 
   if (TMA && tid == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(&full[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   if constexpr (PAIRS) {
     // query columns gn .. gq stay zero (no copy writes them)
@@ -413,20 +323,10 @@ firstdim_kernel(const __grid_constant__ CUtensorMap db_map,
   // (Q_0, Q_1, Q_2, Q_3), Q_j = 2^(8j) q mod p
   auto prescale = [&](int st, int li, uint32_t* pb) {
     const uint32_t* sq = sm + st * stage_words + ks * geo.mbl;
-    const uint32_t p = li ? B_I : P_I;
-    const uint32_t one = li ? 0xFFFFFFFFu / B_I : 0xFFFFFFFFu / P_I;
     for (int i = tid; i < ks * gn; i += nthreads) {
       const int r = i / gn, c = i - r * gn;
-      const uint32_t x = sq[r * gq + c];
-      uint32_t q0 = x - __umulhi(x, one) * p;   // [0, 2p)
-      q0 = q0 >= p ? q0 - p : q0;
-      uint32_t q1 = times_weight<1>(q0, li);
-      uint32_t q2 = times_weight<2>(q0, li);
-      uint32_t q3 = times_weight<3>(q0, li);
-      q1 = q1 >= p ? q1 - p : q1;
-      q2 = q2 >= p ? q2 - p : q2;
-      q3 = q3 >= p ? q3 - p : q3;
-      *reinterpret_cast<uint4*>(pb + r * nl + 4 * c) = bytes_t(q0, q1, q2, q3);
+      *reinterpret_cast<uint4*>(pb + r * nl + 4 * c) =
+          prescaled_planes(sq[r * gq + c], li);
     }
   };
 
@@ -636,40 +536,15 @@ firstdim_kernel(const __grid_constant__ CUtensorMap db_map,
   cp_async_wait<0>();
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime
-static PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &res);
-#endif
-    return res == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The database's TMA map: (2d planes, K rows, m columns) uint32, boxes of
 // (1, box_rows, 32 columns), 128-byte swizzle, zeros past its edges
 static bool make_map(CUtensorMap* map, const void* db, int m, int K,
                      int planes, int box_rows) {
-  const auto encode = encode_tiled();
-  if (!encode) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)m, (cuuint64_t)K,
                               (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)m * 4, (cuuint64_t)m * K * 4};
   const cuuint32_t box[3] = {BOX, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(db),
-                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_u32_map(map, db, 3, dims, strides, box);
 }
 
 template <int NW, bool TMA, bool PAIRS>

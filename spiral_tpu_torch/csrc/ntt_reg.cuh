@@ -1,27 +1,28 @@
 // Register-resident negacyclic NTT for Hopper: the core of the batched NTT
 // K1 (ntt.cu), of the expansion's inverse NTT + automorphism K8a and key
-// switch K4 (expand.cu), of the fold template K3/K5/K6 (fold.cu) and of
-// the packing K7 (pack.cu).  The radix-2 network of ntt.cuh is left to
-// K8b-1 (fold_mxu.cu).
+// switch K4 (expand.cu), of the fold template K3/K5/K6 (fold.cu), of the
+// packing K7 (pack.cu) and of the mxu fold's digit NTTs K8b-1
+// (fold_mxu.cu): every NTT of the port's kernels.
 //
 // It replaces no TPU kernel of its own: the Pallas kernels that these
 // kernels replace (spiral_tpu/arith/ntt_pallas.py CrtNttPallas._run,
 // server/expand_pallas.py _auto_call and _keyswitch_call, fold_pallas.py
-// _fold_round_call) ran their NTTs as int8 matmuls on the MXU; here they
-// are butterflies on the CUDA cores.
+// _fold_round_call and _fold_ntt_call) ran their NTTs as int8 matmuls on
+// the MXU; here they are butterflies on the CUDA cores.
 //
-// The radix-2 network of ntt.cuh keeps one poly in shared memory with d/2
-// threads: 11 __syncthreads() stages at d = 2048, a twiddle read from
-// device memory and a 64-bit Barrett product per butterfly.  A block that
-// walks dozens of digit polys through it is a latency chain.  Here a team
-// of d/8 threads holds NP polys at once, 8 coefficients of each in
-// registers per thread, and runs radix-8 passes in registers (stages
-// 3p .. 3p+2 in pass p; at d = 2048 passes of 3, 3, 3 and 2 stages), with
-// one exchange through shared memory between passes: 4 barriers per NTT
-// instead of 11, shared by the NP polys.  A team of 256 threads (d = 2048)
-// is its block and syncs with __syncthreads(); a team of one warp (d = 256)
-// syncs with __syncwarp(), so a block may hold several teams that run
-// apart, each on its own exchange buffers (the `sm` base the core takes).
+// A radix-2 network that keeps one poly in shared memory with d/2 threads
+// (the port's first NTT) runs 11 __syncthreads() stages at d = 2048, a
+// twiddle read from device memory and a 64-bit Barrett product per
+// butterfly; a block that walks dozens of digit polys through it is a
+// latency chain.  Here a team of d/8 threads holds NP polys at once, 8
+// coefficients of each in registers per thread, and runs radix-8 passes in
+// registers (stages 3p .. 3p+2 in pass p; at d = 2048 passes of 3, 3, 3
+// and 2 stages), with one exchange through shared memory between passes:
+// 4 barriers per NTT instead of 11, shared by the NP polys.  A team of 256
+// threads (d = 2048) is its block and syncs with __syncthreads(); a team
+// of one warp (d = 256) syncs with __syncwarp(), so a block may hold
+// several teams that run apart, each on its own exchange buffers (the `sm`
+// base the core takes).
 //
 // Arithmetic: every multiply by a fixed operand is a Shoup product,
 //   a*w - umulhi(a, w')*p  in [0, 2p),  w' = floor(w * 2^32 / p),
@@ -32,17 +33,18 @@
 // The transform: the forward NTT is Cooley-Tukey with the psi powers
 // merged into the twiddles (stage s, group i: psi_rev[2^s + i],
 // psi_rev[k] = psi^bitrev(k)), natural order in, X[bitrev(pos)] at pos out,
-// the same output as ntt.cuh's twist + ntt_dif, so no twist pass.  The
-// inverse is Gentleman-Sande with psi_inv_rev[k] = psi^-bitrev(k), then
-// one Shoup product by d^{-1}: the untwist is merged too.  Twiddles sit in
+// the radix-2 decimation in frequency's order (arith/ntt.py forward_plain),
+// with no twist pass.  The inverse is Gentleman-Sande with psi_inv_rev[k]
+// = psi^-bitrev(k), then one Shoup product by d^{-1}: the untwist is
+// merged too.  Twiddles sit in
 // shared memory as (w, w') pairs, loaded once per block; the pass of thread
 // t reads the 2^k pairs of stage k at psi_rev[2^s + (high << k)], contiguous
 // and shared by the threads of one group.
 //
-// Table rows (arith/tables.py NttTables.packed, appended after ntt.cuh's
-// rows 0-9): 10 + 4*li + 0 psi_rev, + 1 its Shoup companions, + 2
-// psi_inv_rev with entry 0 (never a twiddle) holding d^{-1}, + 3 their
-// companions; row 8 pos_of_slot.
+// Table rows (arith/tables.py NttTables.packed, ROW_POS and ROW_REG there
+// too): row 0 pos_of_slot; 1 + 4*li + 0 psi_rev, + 1 its Shoup
+// companions, + 2 psi_inv_rev with entry 0 (never a twiddle) holding
+// d^{-1}, + 3 their companions.
 //
 // Slot order: after the forward passes the team writes its values to
 // shared memory at their positions and reads them back at pos_of_slot, so
@@ -71,8 +73,8 @@ namespace reg {
 
 namespace cg = cooperative_groups;
 
-constexpr int ROW_POS = 8;    // pos_of_slot
-constexpr int ROW_REG = 10;   // first row of this core's twiddles
+constexpr int ROW_POS = 0;    // pos_of_slot
+constexpr int ROW_REG = 1;    // first row of this core's twiddles
 constexpr int NP_MAX = 2;     // polys in flight per team
 
 template <int L>

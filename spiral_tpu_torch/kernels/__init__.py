@@ -29,13 +29,13 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("ntt.cu", "firstdim.cu", "fold.cu", "expand.cu", "pack.cu",
            "fold_mxu.cu")
-HEADERS = ("common.cuh", "ntt.cuh", "ntt_reg.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "ntt_reg.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # ring degrees the kernels on the register NTT (csrc/ntt_reg.cuh: K1,
-# K3-K7, K4 and K8a) are built for, one instance each: the presets' 256 and
-# 2048; their wrappers raise on any other
+# K3-K7, K4, K8a and K8b-1) are built for, one instance each: the presets'
+# 256 and 2048; their wrappers raise on any other
 REG_NTT_DEGREES = (256, 2048)
 
 LAUNCHES = {"ntt": 0, "firstdim": 0, "fold": 0, "expand": 0,

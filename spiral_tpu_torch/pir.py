@@ -36,7 +36,8 @@ from .server.expand import (coefficient_expansion, neg_monomial_ntts,
                             reorder_from_stopround)
 from .server.firstdim import (finish_output_batch, multiply_query_by_db_batch,
                               reorient_query)
-from .server.fold import fold_ciphertexts, fold_rounds_batch
+from .server.fold import (fold_ciphertexts, fold_rounds_batch,
+                          mxu_workspace)
 
 
 class SpiralClient:
@@ -128,6 +129,9 @@ class SpiralServer:
         self._g2_ntt = ntt.forward(build_gadget(params.n1, params.m2, d,
                                                 self.device))
         neg_monomial_ntts(d, self.device)   # made once here
+        # G of the fold's K8b rounds (2.2 GB at spiral_24_256), so that no
+        # query allocates it
+        self._fold_g = mxu_workspace(params, self.device)
 
     # -- stages (spiral_tpu/pir.py _build_stages); the *_batch forms,
     # compose and convert take and give a leading query axis, as the JAX
@@ -184,7 +188,8 @@ class SpiralServer:
         return fold_rounds_batch(cts_b, q_pos_b, q_neg_b, self.params)[:, 0]
 
     def fold(self, cts_coeff, q_pos, q_neg):
-        return fold_ciphertexts(cts_coeff, q_pos, q_neg, self.params)
+        return fold_ciphertexts(cts_coeff, q_pos, q_neg, self.params,
+                                g_buf=self._fold_g)
 
     def process_query(self, query: Query):
         """Answer one query: (Response, ServerTimings)."""

@@ -1,6 +1,8 @@
 """End to end: the port's server answers JAX SpiralClient queries with the
 JAX server's exact response rows, and the port's own client and server
 decode correctly."""
+from collections import defaultdict
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -25,9 +27,11 @@ STOP_CFG = dict(nu_1=5, nu_2=2, p_db=256, q_prime_bits=20, t_gsw=9,
                 t_conv=4, t_exp=8, t_exp_right=56, poly_len=128)
 
 
-# the fold's engine per round: the default rule (K3 in every round), K3
-# forced, and K8b (the JAX SPIRAL_FOLD=mxu path) in every round
-FOLD_LIMITS = {"default": fold.MXU_MAX_K3_BLOCKS, "k3": 0, "k8b": 1 << 30}
+# the fold's engine per round: the default rule (K3 in every round at
+# these small configurations), K3 forced, and K8b (the JAX SPIRAL_FOLD=mxu
+# path) in every round
+FOLD_RULES = {"default": fold.MXU_MIN_COLS, "k3": {},
+              "k8b": defaultdict(int)}
 
 
 @pytest.fixture(scope="module")
@@ -63,7 +67,7 @@ def jax_run():
 def test_torch_server_answers_jax_client(jax_run, monkeypatch, cfg,
                                          engines):
     p, tp, client, pub, pts, jdb, q, want = jax_run(cfg)
-    monkeypatch.setattr(fold, "MXU_MAX_K3_BLOCKS", FOLD_LIMITS[engines])
+    monkeypatch.setattr(fold, "MXU_MIN_COLS", FOLD_RULES[engines])
     tserver = SpiralServer(
         tp, interop.encoded_db(np.asarray(jdb.data), tp, "cpu"),
         interop.public_params([np.asarray(w.data) for w in pub.W_exp_left],

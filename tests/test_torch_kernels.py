@@ -4,6 +4,8 @@ skips it on a machine without a CUDA device.  On the card (no jax there, so skip
 conftest, which imports it):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 """
+from collections import defaultdict
+
 import pytest
 import torch
 
@@ -235,21 +237,39 @@ def test_auto_kernel(cuda, d, r):
         kernels.reset_launches()
 
 
+# K8b-1 on the register core: a team per source row, m_out 1 (two rows
+# a limb at d = 2048) and a ragged count (the teams of a d = 256 block
+# outnumber the rows)
+@pytest.mark.parametrize("m_out", [1, 5])
 @pytest.mark.parametrize("d", [256, 2048])
 @pytest.mark.parametrize("t_gsw", [8, 9, 11])
-def test_fold_ntt_kernel(cuda, t_gsw, d):
-    pairs = _residues(cuda, (3, 2, 3, 2, d))
+def test_fold_ntt_kernel(cuda, t_gsw, d, m_out):
+    pairs = _residues(cuda, (m_out, 2, 3, 2, d))
     _same(fold.fold_ntt(pairs, t_gsw), fold.fold_ntt_plain(pairs, t_gsw),
           "fold_ntt")
 
 
-# m_out 37: 74 columns, two column blocks of the kernel, the second ragged
-@pytest.mark.parametrize("d, m_out", [(256, 37), (2048, 5)])
+def test_fold_ntt_degrees_only(cuda):
+    """K8b-1 is built for kernels.REG_NTT_DEGREES only."""
+    with pytest.raises(ValueError):
+        fold.fold_ntt(_residues(cuda, (2, 2, 3, 2, 64)), 9)
+    assert kernels.LAUNCHES["fold_ntt"] == 0
+
+
+# K8b-2: m_out 37 (74 columns: ten tiles of 8, the last ragged, over
+# several column ranges at d = 256), m_out 5 and m_out 1 (one tile, 2 of
+# its 8 columns), on random residues and on p - 1 everywhere
+@pytest.mark.parametrize("words", ["random", "worst"])
+@pytest.mark.parametrize("d, m_out", [(256, 37), (2048, 5), (2048, 1)])
 @pytest.mark.parametrize("t_gsw", [8, 9, 11])
-def test_fold_contract_kernel(cuda, t_gsw, d, m_out):
+def test_fold_contract_kernel(cuda, t_gsw, d, m_out, words):
     G = _residues(cuda, (2, t_gsw, m_out, 6, d)).permute(
         4, 0, 1, 2, 3, 5).contiguous()
     qn, qp = (_residues(cuda, (3, 3 * t_gsw, d)) for _ in range(2))
+    if words == "worst":      # G's limb axis leads, q's is -2
+        G[0], G[1] = P_I - 1, B_I - 1
+        for q in (qn, qp):
+            q[..., 0, :], q[..., 1, :] = P_I - 1, B_I - 1
     _same(fold.fold_contract(G, qn, qp, t_gsw),
           fold.fold_contract_plain(G, qn, qp, t_gsw), "fold_contract")
 
@@ -263,9 +283,47 @@ def test_fold_mxu_rounds_kernels(cuda, monkeypatch, t_gsw):
     cts = _residues(cuda, (8, 3, 2, p.poly_len))
     qp, qn = (_residues(cuda, (3, 3, 3 * t_gsw, p.poly_len))
               for _ in range(2))
-    monkeypatch.setattr(fold, "MXU_MAX_K3_BLOCKS", 1 << 30)
+    monkeypatch.setattr(fold, "MXU_MIN_COLS", defaultdict(int))
     got = fold.fold_rounds(cts, qp, qn, p)
-    monkeypatch.setattr(fold, "MXU_MAX_K3_BLOCKS", 0)
+    monkeypatch.setattr(fold, "MXU_MIN_COLS", {})
     _same(got, fold.fold_rounds(cts, qp, qn, p), "fold_ntt", 3)
     assert kernels.LAUNCHES["fold_contract"] == 3
     assert kernels.LAUNCHES["fold"] == 3
+
+
+def test_fold_contract_geometry_matches_kernel(cuda):
+    """fold.contract_smem, which the engine rule and the CPU model of K8b-2
+    read, equals the kernel's own answer at every n1 and t_gsw."""
+    lib = kernels.lib()
+    for n1 in range(6):
+        for t_gsw in range(1, 58):
+            assert fold.contract_smem(n1, t_gsw) == \
+                lib.spiral_fold_contract_smem(n1, t_gsw), (n1, t_gsw)
+
+
+def test_fold_g_workspace(cuda, monkeypatch):
+    """K8b-1 writes G into the buffer it is given where that holds G (no
+    allocation) and into a new tensor where it does not; a fold through a
+    server's mxu_workspace, sized by its K8b rounds (round 1 of 8 at
+    t_gsw 11: m_out 128), equals K3's."""
+    cts = _residues(cuda, (2, 2, 3, 2, 256))
+    want = fold.fold_ntt_plain(cts, 11)
+    buf = torch.empty(want.numel() + 5, dtype=torch.int32, device="cuda")
+    G = fold.fold_ntt(cts, 11, buf)
+    _same(G, want, "fold_ntt")
+    assert G.data_ptr() == buf.data_ptr()
+    G = fold.fold_ntt(cts, 11, buf[:want.numel() - 1])
+    _same(G, want, "fold_ntt", 2)
+    assert G.data_ptr() != buf.data_ptr()
+    from spiral_tpu_torch.params import Params
+    p = Params(nu_1=2, nu_2=8, p_db=256, t_gsw=11, t_conv=4, t_exp=8,
+               t_exp_right=8)
+    buf = fold.mxu_workspace(p, "cuda")
+    assert buf.numel() == fold.g_words(11, 128, 6, p.poly_len)
+    cts = _residues(cuda, (256, 3, 2, p.poly_len))
+    qp, qn = (_residues(cuda, (8, 3, 33, p.poly_len)) for _ in range(2))
+    kernels.reset_launches()
+    got = fold.fold_rounds(cts, qp, qn, p, g_buf=buf)
+    assert kernels.LAUNCHES["fold_ntt"] == 1 and kernels.LAUNCHES["fold"] == 7
+    monkeypatch.setattr(fold, "MXU_MIN_COLS", {})
+    _same(got, fold.fold_rounds(cts, qp, qn, p), "fold", 15)

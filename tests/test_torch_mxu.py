@@ -5,6 +5,8 @@ one, and the fold's choice of K3 or K8b per round.  Each package
 forwards the same coefficient-domain polys with its own NTT engine (the
 slot orders differ) and the outputs compare in the coefficient domain.
 All arithmetic is exact: the tolerance is 0."""
+from collections import defaultdict
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -18,7 +20,10 @@ from spiral_tpu_torch import interop
 from spiral_tpu_torch import params as tparams
 from spiral_tpu_torch.arith import ntt
 from spiral_tpu_torch.core.poly import add_raw, automorph_raw, matmul_raw
+from spiral_tpu_torch import kernels
 from spiral_tpu_torch.server import expand, fold
+from spiral_tpu_torch.server.fold import (KS_LARGE, KS_SMALL, MAX_STAGES,
+                                          NT, OS_LD, ZG)
 
 D = 2048     # the JAX Pallas NTT tables fix d
 
@@ -65,7 +70,7 @@ def _fold_case(t_gsw, nu_2, seed):
 
 @pytest.fixture
 def mxu_every_round(monkeypatch):
-    monkeypatch.setattr(fold, "MXU_MAX_K3_BLOCKS", 1 << 30)
+    monkeypatch.setattr(fold, "MXU_MIN_COLS", defaultdict(int))
 
 
 @pytest.mark.parametrize("t_gsw, nu_2", [(3, 2), (9, 3)])
@@ -124,15 +129,27 @@ def test_fold_ntt_plain_layout():
                            dig[k * n1 + jn1, c])
 
 
+def _round_shapes(pr):
+    """(m_out, n1, n2, t_gsw, d) of each round of a preset's single-query
+    fold."""
+    return [(pr.num_per >> (r + 1), pr.n1, pr.n2, pr.t_gsw, pr.poly_len)
+            for r in range(pr.nu_2)]
+
+
 def test_fold_picks_engine_per_round(monkeypatch):
-    """A round runs K8b when K3 would run at most MXU_MAX_K3_BLOCKS blocks
-    (2 * m_out * n2), else K3; either way the fold's output is K3's.  By
-    default no round of the headline presets runs K8b: the clustered K3
-    beat it in every round measured on the card."""
-    for name in ("spiral_20_256", "spiral_24_256"):
-        pr = tparams.preset(name)
-        assert not any(fold.round_uses_mxu(pr.num_per >> (r + 1), pr.n2)
-                       for r in range(pr.nu_2)), name
+    """A round runs K8b where m_out * n2 reaches MXU_MIN_COLS[t_gsw] and
+    K8b takes its shape, else K3; either way the fold's output is K3's.
+    By default only the rounds of t_gsw 11 where K8b beat K3 on the card
+    in every run run K8b: m_out 128 and up (rounds 1-4 of spiral_24_256,
+    1-2 of spiral_22_256); no round of spiral_20_256 (t_gsw 9), its t_gsw
+    8 variant, or the t_gsw 12 and 13 presets, which were not measured."""
+    for name, mxu_rounds in (("spiral_20_256", 0), ("spiral_20_256_paper", 0),
+                             ("spiral_22_256", 2), ("spiral_24_256", 4),
+                             ("spiral_26_256", 0), ("spiral_28_256", 0)):
+        shapes = _round_shapes(tparams.preset(name))
+        picks = [fold.round_uses_mxu(*s[:4]) for s in shapes]
+        assert picks == [r < mxu_rounds for r in range(len(shapes))], name
+    assert fold.mxu_workspace(tparams.preset("spiral_24_256"), "cpu") is None
     tp = tparams.Params(nu_1=2, nu_2=3, p_db=256, t_gsw=3, t_conv=4,
                         t_exp=8, t_exp_right=8, poly_len=256)
     rng = np.random.default_rng(12)
@@ -142,10 +159,282 @@ def test_fold_picks_engine_per_round(monkeypatch):
     for name in ("fold_round", "fold_round_mxu"):
         monkeypatch.setattr(fold, name, lambda *a, f=getattr(fold, name),
                             name=name: (calls.append(name), f(*a))[1])
-    for limit, engines in ((0, ["fold_round"] * 3),
-                           (8, ["fold_round"] + ["fold_round_mxu"] * 2),
-                           (1 << 30, ["fold_round_mxu"] * 3)):
-        monkeypatch.setattr(fold, "MXU_MAX_K3_BLOCKS", limit)
+    # rounds of m_out * n2 8, 4 and 2 (m_out 4, 2, 1; n2 2; t_gsw 3)
+    for rule, engines in (({}, ["fold_round"] * 3),
+                          ({3: 4}, ["fold_round_mxu"] * 2 + ["fold_round"]),
+                          ({9: 0}, ["fold_round"] * 3),
+                          (defaultdict(int), ["fold_round_mxu"] * 3)):
+        monkeypatch.setattr(fold, "MXU_MIN_COLS", rule)
         calls = []
         assert torch.equal(fold.fold_rounds(cts, qp, qn, tp), want)
-        assert calls == engines, limit
+        assert calls == engines, rule
+
+
+@pytest.mark.parametrize("rule", ["default", "k8b"])
+def test_fold_rounds_go_to_a_kernel_that_takes_them(monkeypatch, rule):
+    """Every round of every preset's single-query fold goes to a kernel
+    whose wrapper takes its shape, under the default rule and with K8b
+    wherever it fits: K8b only where K8b-2's block fits (2 t_gsw n1 <=
+    72, its shared memory as the kernel computes it) and n2 is 1, 2, 4 or
+    8, K3 (n1 = 3) elsewhere; both at d in kernels.REG_NTT_DEGREES.  So
+    spiral_28_256's t_gsw 13 (78 elements) runs K3 even when K8b is
+    forced."""
+    if rule == "k8b":
+        monkeypatch.setattr(fold, "MXU_MIN_COLS", defaultdict(int))
+    for name, pr in tparams.PRESETS.items():
+        for m_out, n1, n2, t, d in _round_shapes(pr):
+            assert d in kernels.REG_NTT_DEGREES, name
+            if fold.round_uses_mxu(m_out, n1, n2, t):
+                assert 2 * t * n1 <= 8 * KS_LARGE and n2 in (1, 2, 4, 8)
+                assert fold.contract_smem(n1, t) > 0, (name, t)
+            else:
+                assert n1 == 3, name
+    forced = rule == "k8b"
+    assert not any(fold.round_uses_mxu(*s[:4]) for s in _round_shapes(
+        tparams.preset("spiral_28_256")))
+    assert fold.round_uses_mxu(1024, 3, 2, 12) == forced
+    assert not fold.contract_smem(3, 13) and not fold.contract_smem(5, 2)
+
+
+# ---- K8b-2 (csrc/fold_mxu.cu): its limb scheme, shared memory and
+# fragments, mirrored in numpy ----
+WORDS = ["random", "worst"]
+
+
+def _contract_operands(rng, words, t_gsw, n1=3, n2=2, m_out=3, d=64):
+    """G (2 li, 2 s, t, m_out, n1*n2, d) and q_neg/q_pos (n1, t*n1, 2, d):
+    random residues, or p - 1 everywhere (the largest limb products)."""
+    if words == "worst":
+        full = lambda shape: _residues(rng, shape) * 0 + np.array(
+            [[P_I - 1], [B_I - 1]], dtype=np.uint32)
+    else:
+        full = lambda shape: _residues(rng, shape)
+    G = np.moveaxis(full((2, t_gsw, m_out, n1 * n2, d)), -2, 0).copy()
+    return _t(G), _t(full((n1, t_gsw * n1, d))), _t(full((n1, t_gsw * n1, d)))
+
+
+def _exact_contract(G, qn, qp, t_gsw, n1):
+    m_out, n2 = G.shape[3], G.shape[4] // n1
+    d = G.shape[-1]
+    Gs = G.reshape(2, 2, t_gsw, m_out, n1, n2, d).permute(
+        1, 3, 2, 4, 5, 0, 6).reshape(2, m_out, t_gsw * n1, n2, 2, d)
+    return add_raw(matmul_raw(qn, Gs[0]), matmul_raw(qp, Gs[1]))
+
+
+@pytest.mark.parametrize("words", WORDS)
+@pytest.mark.parametrize("bits", [7, 8])
+@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+def test_fold_contract_limb_widths(t_gsw, bits, words):
+    """JAX's 7-bit limbs and the kernel's 8-bit limbs (G's words as stored,
+    the query prescaled) both give the exact contraction, on random
+    residues and on p - 1 everywhere; the int32 sums stay below 2^31 (and
+    the kernel's below 2^24.1) and the recombination below 2^64 (the
+    kernel's below 2^49, one Barrett reduction)."""
+    n1 = 3
+    G, qn, qp = _contract_operands(np.random.default_rng(7 * t_gsw + bits),
+                                   words, t_gsw)
+    o = fold.fold_contract_limb_sums(G, qn, qp, t_gsw, bits)
+    terms = 2 * t_gsw * n1 * fold.N_LIMBS
+    assert int(o.min()) >= 0
+    assert int(o.max()) <= terms * ((1 << bits) - 1) ** 2 < 2 ** 31
+    v = fold.fold_contract_recombined(o, bits)
+    assert 0 <= int(v.min()) and int(v.max()) < 2 ** 63
+    if bits == 8:
+        assert int(o.max()) < 2 ** 24.1 and int(v.max()) < 2 ** 49
+    p = torch.tensor([P_I, B_I])[:, None, None, None, None]
+    got = (v % p).permute(1, 2, 3, 0, 4).to(torch.int32)
+    assert torch.equal(got, _exact_contract(G, qn, qp, t_gsw, n1))
+
+
+# the card's shared memory a block may take (227 KB)
+SMEM_CARD = 232448
+
+
+def _b_row(e, col, n1, n2):
+    """The stage row of element e = k' n1 + jn1 and tile column col =
+    mo n2 + c: the TMA box (32 slots, n2, n1, 8 / n2, 2 t_gsw)."""
+    kp, jn1 = e // n1, e % n1
+    return ((kp * (NT // n2) + col // n2) * n1 + jn1) * n2 + col % n2
+
+
+def _rof(n1, n2, E, ksteps):
+    """Rof[kq, h, lane]: R*32 + 4 (R & 7) of lane (g, tig)'s element
+    8 kq + tig + 4 h (clamped to E - 1) of column g."""
+    lane = np.arange(32)
+    out = np.empty((ksteps, 2, 32), dtype=np.int64)
+    for kq in range(ksteps):
+        for h in range(2):
+            e = np.minimum(8 * kq + (lane & 3) + 4 * h, E - 1)
+            R = _b_row(e, lane >> 2, n1, n2)
+            out[kq, h] = R * ZG + ((R & 7) << 2)
+    return out
+
+
+@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+def test_contract_geometry_and_banks(t_gsw):
+    """At t_gsw 8, 9 and 11 (n1 3, n2 2): a ring of at least 3 stages fits
+    the card's 227 KB with the mbarriers; stages are whole 1 KB swizzle
+    periods; the prescaled query fits stages 1 ..; an instance holds the k
+    steps; each k step's B reads cover every (element, column) of the tile
+    once, within the stage, at most 4 lanes a bank; the epilogue's writes
+    hit 32 distinct banks; the grid's column ranges cover the tiles."""
+    n1, n2 = 3, 2
+    geo = fold.contract_geometry(n1, t_gsw)
+    assert geo["stages"] >= 3 and geo["total"] + 8 * MAX_STAGES <= SMEM_CARD
+    assert geo["stage"] % 1024 == 0
+    assert geo["qp"] <= (geo["stages"] - 1) * geo["stage"]
+    assert geo["ksteps"] <= (KS_SMALL if t_gsw <= 9 else KS_LARGE)
+    E, rof = geo["E"], _rof(n1, n2, geo["E"], geo["ksteps"])
+    lane = np.arange(32)
+    seen = set()
+    for kq in range(geo["ksteps"]):
+        for h in range(2):
+            e = 8 * kq + (lane & 3) + 4 * h
+            R = rof[kq, h] // ZG
+            assert (R < E * NT).all()
+            seen |= {(int(a), int(b)) for a, b, ok in
+                     zip(e, lane >> 2, e < E) if ok}
+            for zl in range(ZG):
+                banks = np.bincount((rof[kq, h] ^ zl) % 32)
+                assert banks.max() <= 4
+    assert seen == {(e, c) for e in range(E) for c in range(NT)}
+    g, tig = lane >> 2, lane & 3
+    for zl in range(ZG):       # rows r = g < n1 of lanes with g < 4
+        for cc in range(2):
+            ok = g < n1
+            addr = ((g * NT + 2 * tig + cc) * OS_LD + zl)[ok]
+            assert len(set(addr % 32)) == ok.sum()
+    for d, m_out in ((2048, 64), (2048, 1), (2048, 1024), (256, 5)):
+        groups, ntiles = 2 * d // ZG, (m_out * n2 + NT - 1) // NT
+        chunks = max(1, min(132 // groups, ntiles))
+        spans = [(c * ntiles // chunks, (c + 1) * ntiles // chunks)
+                 for c in range(chunks)]
+        assert [a for a, b in spans] == [0] + [b for a, b in spans][:-1]
+        assert spans[-1][1] == ntiles and all(b > a for a, b in spans)
+
+
+def _kernel_contract(G, qn, qp, t_gsw, n1, n2):
+    """fold_contract_kernel in numpy, lane by lane: the TMA stage image of
+    each column tile (128-byte swizzle, zeros past m_out), each warp's A
+    fragments built from its slot's q words, B fragments read at Rof ^ zl,
+    mma.sync.m16n8k32 as its fragment maps say, the epilogue's pairing of
+    lane and lane ^ 16 and one reduction mod p."""
+    G = G.numpy().astype(np.int64)
+    qs = [q.numpy().astype(np.int64) for q in (qn, qp)]
+    _, _, _, m_out, P, d = G.shape
+    geo = fold.contract_geometry(n1, t_gsw)
+    E, ks = geo["E"], geo["ksteps"]
+    rof = _rof(n1, n2, E, ks)
+    m2, mo_tile, N = t_gsw * n1, NT // n2, m_out * n2
+    lane = np.arange(32)
+    g, tig = lane >> 2, lane & 3
+    out = np.zeros((m_out, n1, n2, 2, d), dtype=np.int64)
+    Gb = G.reshape(2, 2 * t_gsw, m_out, n1, n2, d)   # li, k', mo, jn1, c
+    for li, p in enumerate((P_I, B_I)):
+        for z in range(d):
+            zl = z % ZG
+            # the prescaled words (W0, W2, W1, W3) of q row (s n1 + r) m2
+            # + kk, W_i's byte j = limb_i(2^(8j) q mod p)
+            qrow = np.concatenate([q[:, :, li, z].reshape(-1) for q in qs])
+            Q = np.stack([qrow * ((1 << (8 * j)) % p) % p for j in range(4)])
+            Wp = np.stack([sum(((Q[j] >> (8 * i)) & 0xFF) << (8 * j)
+                               for j in range(4)) for i in (0, 2, 1, 3)])
+            # A: (16 rows, 4 E' bytes) from the lanes' registers, each an
+            # 8-byte read (W_ilo, W_ilo+2) of row r m2 + e + s (n1 - 1) m2
+            A = np.zeros((16, 32 * ks), dtype=np.int64)
+            r, ilo = g & 3, g >> 2
+            for kq in range(ks):
+                for hh in range(2):
+                    e = 8 * kq + tig + 4 * hh
+                    for ln in range(32):
+                        if r[ln] >= n1 or e[ln] >= E:
+                            continue
+                        s = int(e[ln] >= m2)
+                        row = r[ln] * m2 + e[ln] + s * (n1 - 1) * m2
+                        w = Wp[2 * ilo[ln]:2 * ilo[ln] + 2, row]
+                        col = 32 * kq + 4 * (tig[ln] + 4 * hh)
+                        for h1 in range(2):      # register 2 hh + h1
+                            for j in range(4):
+                                A[g[ln] + 8 * h1, col + j] = \
+                                    (int(w[h1]) >> (8 * j)) & 0xFF
+            assert int(A[[3, 7, 11, 15]].max()) == 0     # r = 3: padding
+            for nt in range((N + NT - 1) // NT):
+                img = np.zeros(E * NT * ZG, dtype=np.int64)
+                for kp in range(2 * t_gsw):
+                    for mo in range(mo_tile):
+                        mg = nt * mo_tile + mo
+                        for jn1 in range(n1):
+                            for c in range(n2):
+                                R = ((kp * mo_tile + mo) * n1 + jn1) * n2 + c
+                                if mg < m_out:
+                                    w0 = z - zl
+                                    img[R * ZG + (np.arange(ZG) ^
+                                                  ((R & 7) << 2))] = \
+                                        Gb[li, kp, mg, jn1, c, w0:w0 + ZG]
+                Bm = np.zeros((32 * ks, NT), dtype=np.int64)
+                for kq in range(ks):
+                    for h in range(2):
+                        word = img[rof[kq, h] ^ zl]
+                        for j in range(4):
+                            Bm[32 * kq + 16 * h + 4 * tig + j, g] = \
+                                (word >> (8 * j)) & 0xFF
+                D = A @ Bm
+                assert D.max() < 2 ** 31
+                acc = np.stack([D[g, 2 * tig], D[g, 2 * tig + 1],
+                                D[g + 8, 2 * tig], D[g + 8, 2 * tig + 1]])
+                ilo = g >> 2
+                for cc in range(2):
+                    v = (acc[cc] << (8 * ilo)) + \
+                        (acc[2 + cc] << (8 * (ilo + 2)))
+                    v = v + v[lane ^ 16]
+                    assert v.max() < 2 ** 49
+                    for ln in np.nonzero((ilo == 0) & (g < n1))[0]:
+                        n = nt * NT + 2 * tig[ln] + cc
+                        if n < N:
+                            out[n // n2, g[ln], n % n2, li, z] = v[ln] % p
+    return torch.from_numpy(out.astype(np.int32))
+
+
+@pytest.mark.parametrize("words", WORDS)
+@pytest.mark.parametrize("t_gsw, m_out", [(9, 5), (11, 1), (3, 2)])
+def test_contract_kernel_model(t_gsw, m_out, words):
+    """The numpy model of K8b-2's fragments equals fold_contract_plain: t_gsw
+    9 (7 k steps, the last part zeros) over a ragged second column tile,
+    t_gsw 11 (9 k steps) at m_out 1, t_gsw 3 (2 k steps)."""
+    n1, n2, d = 3, 2, 64
+    G, qn, qp = _contract_operands(np.random.default_rng(40 + t_gsw), words,
+                                   t_gsw, n1, n2, m_out, d)
+    assert torch.equal(_kernel_contract(G, qn, qp, t_gsw, n1, n2),
+                       fold.fold_contract_plain(G, qn, qp, t_gsw))
+
+
+def test_fold_ntt_kernel_rows():
+    """K8b-1's walk: the teams of a one-wave grid (W teams a block, blocks
+    cut to the units) take every unit once per limb, a source row (mo, s,
+    p) whole or, when the rows are fewer than the teams of a limb's share,
+    each of its carry chains [0, t_gsw // 2) and [t_gsw // 2, t_gsw); so
+    every digit once; and digit k of row (mo, s, p) lands at G's (li, s, k,
+    mo, p) row."""
+    for d, m_out, P, t_gsw in ((2048, 64, 6, 9), (256, 3, 6, 11),
+                               (2048, 1, 6, 2), (2048, 8, 6, 9)):
+        W = 8 if d == 256 else 1
+        rows, h = m_out * 2 * P, t_gsw // 2
+        share = 132 * 2 // 2           # two blocks an SM, half a limb
+        chains = 2 if rows < share * W else 1
+        units = chains * rows
+        blocks = min(-(-units // W), share)
+        digits = np.zeros((rows, t_gsw), dtype=int)
+        for b in range(blocks):
+            for team in range(W):
+                for u in range(b * W + team, units, blocks * W):
+                    src = u >> 1 if chains == 2 else u
+                    k0 = h if chains == 2 and u & 1 else 0
+                    k1 = h if chains == 2 and not u & 1 else t_gsw
+                    digits[src, k0:k1] += 1
+        assert (digits == 1).all()
+        shape = (2, 2, t_gsw, m_out, P, d)
+        for li, src, k in ((1, rows - 1, t_gsw - 1), (0, 7 % rows, 1)):
+            p, s, mo = src % P, (src // P) & 1, src // (2 * P)
+            base = (((li * 2 + s) * t_gsw) * m_out + mo) * P + p
+            assert (base + k * m_out * P) * d == np.ravel_multi_index(
+                (li, s, k, mo, p, 0), shape)

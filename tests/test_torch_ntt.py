@@ -7,7 +7,7 @@ import torch
 from spiral_tpu.arith.ntt_mxu import CrtNttMxu
 from spiral_tpu.params import B_I, P_I
 from spiral_tpu_torch.arith import ntt
-from spiral_tpu_torch.arith.tables import ntt_tables
+from spiral_tpu_torch.arith.tables import ROW_POS, ROW_REG, ntt_tables
 
 
 def _residues(rng, shape):
@@ -99,20 +99,20 @@ def _run_passes(a, rows, p, L, inverse):
 
 @pytest.mark.parametrize("d", [256, 2048])
 def test_register_ntt_tables(d):
-    """Rows 10-17 of the kernel table: each twiddle's Shoup companion is
-    floor(w * 2^32 / p) in Python ints, and the kernels' pass schedule
-    with the lazy Shoup butterflies, driven by those rows, computes the
-    radix-2 transforms that ntt.cuh's twist, omega and untwist rows do
-    (forward_plain / inverse_plain)."""
+    """The kernel table holds pos_of_slot at ROW_POS and the register
+    core's rows from ROW_REG on, and nothing else; each twiddle's Shoup
+    companion is floor(w * 2^32 / p) in Python ints, and the kernels' pass
+    schedule with the lazy Shoup butterflies, driven by those rows,
+    computes the plain radix-2 transforms (forward_plain /
+    inverse_plain)."""
     L = d.bit_length() - 1
     tb = ntt_tables(d)
     pk = tb.packed()
-    np.testing.assert_array_equal(pk[:10], np.stack(
-        [r for li in range(2) for r in (tb.twist[li], tb.untwist[li],
-                                        tb.omega[li], tb.omega_inv[li])] +
-        [tb.pos_of_slot, tb.slot_of_pos]).astype(np.int32))
+    assert pk.shape == (ROW_REG + 8, d)
+    np.testing.assert_array_equal(pk[ROW_POS],
+                                  tb.pos_of_slot.astype(np.int32))
     for li, p in enumerate((P_I, B_I)):
-        for r in (10, 12):
+        for r in (ROW_REG, ROW_REG + 2):
             w = pk[r + 4 * li].view(np.uint32)
             wp = pk[r + 1 + 4 * li].view(np.uint32)
             assert [int(c) for c in wp] == [(int(v) << 32) // p for v in w]
@@ -127,12 +127,12 @@ def test_register_ntt_tables(d):
     want_f = ntt.forward_plain(torch.from_numpy(x.astype(np.int32))).numpy()
     want_i = ntt.inverse_plain(torch.from_numpy(x.astype(np.int32))).numpy()
     for li, p in enumerate((P_I, B_I)):
-        rows = pk[10 + 4 * li: 12 + 4 * li]
+        rows = pk[ROW_REG + 4 * li: ROW_REG + 2 + 4 * li]
         a = _run_passes(x[li].astype(np.uint64), rows, p, L, inverse=False)
         a = np.where(a >= 2 * p, a - 2 * p, a)
         a = np.where(a >= p, a - p, a)
         np.testing.assert_array_equal(a[tb.pos_of_slot], want_f[li])
-        inv = pk[12 + 4 * li: 14 + 4 * li]
+        inv = pk[ROW_REG + 2 + 4 * li: ROW_REG + 4 + 4 * li]
         a = np.zeros(d, dtype=np.uint64)
         a[tb.pos_of_slot] = x[li]
         a = _run_passes(a, inv, p, L, inverse=True)
@@ -180,7 +180,7 @@ def _model_batched(words, d, inverse, t_auto=None):
     taken = np.zeros(len(words), dtype=int)
     per_limb = len(words) // 2
     for li, p in enumerate((P_I, B_I)):
-        row = 10 + 4 * li + (2 if inverse else 0)
+        row = ROW_REG + 4 * li + (2 if inverse else 0)
         G = _teams(d, per_limb)
         for g in range(G):
             for j, NP in _limb_steps(per_limb, g, G):
