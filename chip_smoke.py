@@ -21,7 +21,10 @@ Phases, each printing its own lines and its wall time:
      fold rounds 1 (t_gsw 9 and 8) and the last, and at spiral_24_256's
      round 1 (t_gsw 11), and K8b-2 at round 1 on p - 1 in every word;
      K3, K4 and K6 at the edges of their clusters (one ct, m_out 1 and 5,
-     t_gsw 8, 9 and 11); then every fold round of spiral_20_256 (t_gsw
+     t_gsw 8, 9 and 11); the stream presets' shapes (stream_cases: K3
+     and K5 at t_gsw 5, K6 and K5's pack form at t_gsw 3, K7 at m_conv
+     56, K2 on both stream databases at B = 1 and 8); then every fold
+     round of spiral_20_256 (t_gsw
      9) and spiral_24_256 (t_gsw 11), and round 1 at t_gsw 8, as K3 and
      as a K8b round (K8b-1, K8b-2, K1) on the same inputs, both times on
      one line with the engine the fold picks for it;
@@ -54,7 +57,13 @@ Phases, each printing its own lines and its wall time:
      batch of 8 holding it, whose rows for it must equal the single run's
      (the answers cannot decode: the slab is random); then that query
      with the fold forced to K3 and to K8b in every round, whose rows must
-     equal the default server's.
+     equal the default server's;
+  7. the Stream variants: tiny_stream, tiny_subround (whose subround
+     parts must launch K4 and K8a on the card) and tiny_stream_pack on
+     the card against the plain CPU flow, then spiralstream_20_256 as in
+     phase 4 (both query parts uploaded directly: K4 and K8a must not
+     launch) and spiralstreampack_20_256 as in phase 5, each database
+     freed before the next.
 Each driven path counts launches from 0 and fails if a kernel of the path
 was never launched.  The line before last is the kernels' JSON, the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero.
@@ -65,6 +74,7 @@ import argparse
 import collections
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -134,6 +144,15 @@ PACK_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack", "pack")
 SPIRAL_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_batch")
 PACK_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack_batch",
                    "pack")
+# the stream presets upload every ct directly: no expansion at
+# spiralstream_20_256 (both parts direct), so no K4 and no K8a
+STREAM_PATH = ("ntt", "firstdim", "fold")
+STREAM_BATCH_PATH = ("ntt", "firstdim", "fold_batch")
+STREAM_NOT = ("expand", "auto")
+STREAM_PACK_PATH = ("ntt", "firstdim", "fold_pack", "pack")
+STREAM_PACK_BATCH_PATH = ("ntt", "firstdim", "fold_pack_batch", "pack")
+# tiny_subround expands both parts of its query on the card
+SUBROUND_PATH = ("expand", "auto")
 # the fold's engine forced in every round: (tag, fold.MXU_MIN_COLS, the
 # kernels it must launch, the kernels it must not)
 FOLD_FORCED = (("K3 every round", {}, ("fold",), ("fold_ntt",
@@ -227,7 +246,7 @@ def check_kernels(seed: int) -> dict:
     kernel's first case is its main-path shape."""
     from spiral_tpu_torch.arith import ntt
     from spiral_tpu_torch.params import preset
-    from spiral_tpu_torch.server import expand, firstdim, fold, pack
+    from spiral_tpu_torch.server import expand, firstdim, fold
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = preset("spiral_20_256")
@@ -323,19 +342,12 @@ def check_kernels(seed: int) -> dict:
                   lambda: firstdim.multiply_plain(pdb, pqk), 5, [pdb, pqk],
                   0, K2_MACS_PER_PRODUCT * 2 * d * Kp * mp * 2))
     # K7, out_n 4, m_conv 4
-    on, mc = pp.out_n, pp.m_conv
-    rcts = rand_residues(gen, (T, 2, 1, d))
-    v_W = rand_residues(gen, (on, on + 1, mc, d))
-    cases.append((f"pack_n{on}_m{mc}", "pack",
-                  lambda: pack.pack_ciphertexts(rcts, v_W),
-                  lambda: pack.pack_ciphertexts_plain(rcts, v_W), 20,
-                  [rcts, v_W],
-                  on * 2 * on * (mc * (ntt_products(d) + (on + 1) * d) +
-                                 ntt_products(d))))
+    cases.append(pack_case(gen, "pack", (), pp.out_n, pp.m_conv))
 
     cases += batch_cases(gen)
     cases += mxu_cases(gen)
     cases += edge_cases(gen)
+    cases += stream_cases(gen)
 
     results = {}
     for name, kernel, run, plain, reps, inputs, prods, *macs in cases:
@@ -368,6 +380,107 @@ def check_kernels(seed: int) -> dict:
     return results
 
 
+def fold_batch_case(gen, tag: str, t: int, m_out: int, per_q_shape):
+    """A K5 case at B = BATCH, d 2048: a Spiral round (per_q_shape None;
+    n1 3, n2 2) or a pack round (per_q_shape (T, cts)), m_out outputs per
+    query."""
+    from spiral_tpu_torch.server import fold
+
+    B, d, n1, n2 = BATCH, 2048, 3, 2
+    if per_q_shape is None:
+        cts = rand_residues(gen, (B, 2 * m_out, n1, n2, d))
+        qn, qp = (rand_residues(gen, (B, n1, t * n1, d)) for _ in range(2))
+        return (f"fold_batch_{tag}", "fold_batch",
+                lambda: fold.fold_round_batch(cts, qn, qp, t),
+                lambda: fold.fold_round_plain(cts, qn, qp, t), 5,
+                [cts, qn, qp], B * fold_products(m_out, n1, n2, t, d))
+    cts = rand_residues(gen, (B,) + per_q_shape + (2, 1, d))
+    qn, qp = (rand_residues(gen, (B, 2, 2 * t, d)) for _ in range(2))
+    return (f"fold_pack_batch_{tag}", "fold_pack_batch",
+            lambda: fold.fold_pack_round_batch(cts, qn, qp, t),
+            lambda: fold.fold_pack_round_plain(cts, qn, qp, t), 5,
+            [cts, qn, qp], B * fold_products(m_out, 2, 1, t, d))
+
+
+def pack_case(gen, tag: str, lead: tuple, out_n: int, m_conv: int):
+    """A K7 case: `lead` queries (() for one) of out_n^2 result cts packed
+    with keys of m_conv digits."""
+    from spiral_tpu_torch.server import pack
+
+    d, B = 2048, math.prod(lead)
+    rcts = rand_residues(gen, lead + (out_n * out_n, 2, 1, d))
+    v_W = rand_residues(gen, (out_n, out_n + 1, m_conv, d))
+    return (f"{tag}_n{out_n}_m{m_conv}", "pack",
+            lambda: pack.pack_ciphertexts(rcts, v_W),
+            lambda: pack.pack_ciphertexts_plain(rcts, v_W), 20, [rcts, v_W],
+            B * out_n * 2 * out_n * (m_conv * (ntt_products(d) +
+                                               (out_n + 1) * d) +
+                                     ntt_products(d)))
+
+
+def firstdim_cases(gen, tag: str, K: int, m: int, rows: int,
+                   batches: tuple) -> list:
+    """K2 cases on one database of K x m (2, d, K, m), each B of `batches`
+    queries of `rows` rows; B = 1 runs the single-query entry point."""
+    from spiral_tpu_torch.server import firstdim
+
+    d = 2048
+    db = rand_residues(gen, (d, K, m), 0)
+    cases = []
+    for qb in batches:
+        qk = rand_residues(gen, (qb, K, rows, d))
+        if qb == 1:
+            run = lambda qk=qk: firstdim.multiply_query_by_db(db, qk[0])
+            plain = lambda qk=qk: firstdim.multiply_plain(db, qk[0])
+            name = f"firstdim_{tag}"
+        else:
+            run = lambda qk=qk: firstdim.multiply_query_by_db_batch(db, qk)
+            plain = lambda qk=qk: firstdim.multiply_batch_plain(db, qk)
+            name = f"firstdim_batch_{tag}" + (f"_b{qb}" if qb != BATCH
+                                              else "")
+        cases.append((name, "firstdim", run, plain, 5, [db, qk], 0,
+                      K2_MACS_PER_PRODUCT * 2 * d * K * m * qb * rows))
+    return cases
+
+
+def stream_cases(gen) -> list:
+    """Phase 3 cases at the stream presets' shapes and digit widths: K3 at
+    spiralstream_20_256's round 1 (t_gsw 5, 12-bit signed digits, m_out
+    32) and K5 there at B = 8; K6 at spiralstreampack_20_256's round 1
+    (t_gsw 3, 19-bit unsigned digits, 512 outputs) and K5's pack form
+    there at B = 8; K7 at out_n 4 and m_conv 56 (1-bit digits), one query
+    and B = 8; K2 on both stream databases (K 1,024, n1 3, m 128: 2 GiB;
+    K 64, n1 2, m 1,024: 1 GiB) at B = 1 and 8."""
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.server import fold
+
+    ss, sp = preset("spiralstream_20_256"), preset("spiralstreampack_20_256")
+    d, n1, n2, t = ss.poly_len, ss.n1, ss.n2, ss.t_gsw
+    cts = rand_residues(gen, (ss.num_per, n1, n2, d))
+    qn, qp = (rand_residues(gen, (n1, t * n1, d)) for _ in range(2))
+    cases = [(f"fold_t{t}", "fold", lambda: fold.fold_round(cts, qn, qp, t),
+              lambda: fold.fold_round_plain(cts, qn, qp, t), 5,
+              [cts, qn, qp], fold_products(ss.num_per // 2, n1, n2, t, d)),
+             fold_batch_case(gen, f"t{t}", t, ss.num_per // 2, None)]
+    T, tp = sp.out_n ** 2, sp.t_gsw
+    pcts = rand_residues(gen, (T, sp.num_per, 2, 1, d))
+    pn, pq = (rand_residues(gen, (2, 2 * tp, d)) for _ in range(2))
+    cases += [(f"fold_pack_t{tp}", "fold_pack",
+               lambda: fold.fold_pack_round(pcts, pn, pq, tp),
+               lambda: fold.fold_pack_round_plain(pcts, pn, pq, tp), 5,
+               [pcts, pn, pq], fold_products(T * sp.num_per // 2, 2, 1, tp,
+                                             d)),
+              fold_batch_case(gen, f"t{tp}", tp, T * sp.num_per // 2,
+                              (T, sp.num_per)),
+              pack_case(gen, "pack", (), sp.out_n, sp.m_conv),
+              pack_case(gen, "pack_batch", (BATCH,), sp.out_n, sp.m_conv)]
+    cases += firstdim_cases(gen, "stream", ss.dim0 * ss.n0,
+                            ss.num_per * n2, n1, (1, BATCH))
+    cases += firstdim_cases(gen, "stream_pack", sp.dim0, T * sp.num_per, 2,
+                            (1, BATCH))
+    return cases
+
+
 def batch_cases(gen) -> list:
     """Phase 3 cases of the batch and implicit paths: K5 at round 1 (and
     the last round) of both forms at B = 8, K2 over B = 8 queries at both
@@ -376,7 +489,7 @@ def batch_cases(gen) -> list:
     and K5 at t_gsw 11, K4 at m 16)."""
     from spiral_tpu_torch.arith import ntt
     from spiral_tpu_torch.params import preset
-    from spiral_tpu_torch.server import expand, firstdim, fold, pack
+    from spiral_tpu_torch.server import expand, firstdim, fold
     from spiral_tpu_torch.server.db import slab_rows
 
     cases = []
@@ -385,50 +498,21 @@ def batch_cases(gen) -> list:
     d, n1, n2 = sp.poly_len, sp.n1, sp.n2
     B, T = BATCH, pp.out_n ** 2
 
-    def fold_case(tag, t, m_out, per_q_shape):
-        """K5 Spiral (per_q_shape None) or pack round with m_out outputs
-        per query."""
-        if per_q_shape is None:
-            cts = rand_residues(gen, (B, 2 * m_out, n1, n2, d))
-            qn, qp = (rand_residues(gen, (B, n1, t * n1, d))
-                      for _ in range(2))
-            return (f"fold_batch_{tag}", "fold_batch",
-                    lambda: fold.fold_round_batch(cts, qn, qp, t),
-                    lambda: fold.fold_round_plain(cts, qn, qp, t), 5,
-                    [cts, qn, qp], B * fold_products(m_out, n1, n2, t, d))
-        cts = rand_residues(gen, (B,) + per_q_shape + (2, 1, d))
-        qn, qp = (rand_residues(gen, (B, 2, 2 * t, d)) for _ in range(2))
-        return (f"fold_pack_batch_{tag}", "fold_pack_batch",
-                lambda: fold.fold_pack_round_batch(cts, qn, qp, t),
-                lambda: fold.fold_pack_round_plain(cts, qn, qp, t), 5,
-                [cts, qn, qp], B * fold_products(m_out, 2, 1, t, d))
-
     # K5, round 1 of both forms, both digit widths; the last Spiral round
     for name in ("spiral_20_256", "spiral_20_256_paper"):
         t = preset(name).t_gsw
-        cases.append(fold_case(f"t{t}", t, sp.num_per // 2, None))
-    cases.append(fold_case(f"t{sp.t_gsw}_last", sp.t_gsw, 1, None))
+        cases.append(fold_batch_case(gen, f"t{t}", t, sp.num_per // 2, None))
+    cases.append(fold_batch_case(gen, f"t{sp.t_gsw}_last", sp.t_gsw, 1, None))
     for name in ("spiralpack_20_256", "spiralpack_20_256_paper"):
         t = preset(name).t_gsw
-        cases.append(fold_case(f"t{t}", t, T * pp.num_per // 2,
+        cases.append(fold_batch_case(gen, f"t{t}", t, T * pp.num_per // 2,
                                (T, pp.num_per)))
     # K2 over B queries: G = 24 rows (Spiral) and 16 (pack); the Spiral
     # database also at B = 2, 3, 4 and 16, around the rule that picks K2's
     # form from the query rows (csrc/firstdim.cu)
-    for tag, K, m, rows, bs in (
-            ("spiral", sp.dim0 * sp.n0, sp.num_per * n2, n1, (B, 2, 3, 4, 16)),
-            ("pack", pp.dim0, T * pp.num_per, 2, (B,))):
-        db = rand_residues(gen, (d, K, m), 0)
-        for qb in bs:
-            qk = rand_residues(gen, (qb, K, rows, d))
-            cases.append((f"firstdim_batch_{tag}" +
-                          (f"_b{qb}" if qb != B else ""), "firstdim",
-                          lambda db=db, qk=qk:
-                          firstdim.multiply_query_by_db_batch(db, qk),
-                          lambda db=db, qk=qk: firstdim.multiply_batch_plain(
-                              db, qk), 5, [db, qk], 0,
-                          K2_MACS_PER_PRODUCT * 2 * d * K * m * qb * rows))
-        del db
+    cases += firstdim_cases(gen, "spiral", sp.dim0 * sp.n0, sp.num_per * n2,
+                            n1, (B, 2, 3, 4, 16))
+    cases += firstdim_cases(gen, "pack", pp.dim0, T * pp.num_per, 2, (B,))
     # K2 chunked over the spiral_24_256 slab (64 rows x n2, 2 GiB), two
     # chunks, one query and B; each chunk streams the slab from device
     # memory, as a database of num_chunks slabs would, so its bytes count
@@ -450,15 +534,7 @@ def batch_cases(gen) -> list:
                   lambda: ntt.inverse_plain(x), 20, [x],
                   x.numel() // d * ntt_products(d)))
     # K7 over a batch of pack results
-    on, mc = pp.out_n, pp.m_conv
-    rcts = rand_residues(gen, (B, T, 2, 1, d))
-    v_W = rand_residues(gen, (on, on + 1, mc, d))
-    cases.append((f"pack_batch_n{on}_m{mc}", "pack",
-                  lambda: pack.pack_ciphertexts(rcts, v_W),
-                  lambda: pack.pack_ciphertexts_plain(rcts, v_W), 20,
-                  [rcts, v_W],
-                  B * on * 2 * on * (mc * (ntt_products(d) + (on + 1) * d) +
-                                     ntt_products(d))))
+    cases.append(pack_case(gen, "pack_batch", (B,), pp.out_n, pp.m_conv))
     # spiral_24_256: K3 at t_gsw 11 (6-bit digits), its round 1; K5 at t 11
     # at round 5 of a batch (64 outputs per query); K4 at m 16, its largest
     # left round
@@ -470,7 +546,7 @@ def batch_cases(gen) -> list:
                   lambda: fold.fold_round_plain(cts, qn, qp, t), 5,
                   [cts, qn, qp], fold_products(big.num_per // 2, n1, n2, t,
                                                d)))
-    cases.append(fold_case(f"t{t}_round5", t, 64, None))
+    cases.append(fold_batch_case(gen, f"t{t}_round5", t, 64, None))
     mk, N = big.m_exp, 1 << (big.g - 1)
     cv, ca = (rand_residues(gen, (N, 2, 1, d)) for _ in range(2))
     W = rand_residues(gen, (2, mk, d))
@@ -799,16 +875,18 @@ def _variant(pack: bool):
     return pir.SpiralClient, pir.SpiralServer, db.random_db, db.encode_db
 
 
-def check_tiny(name: str, seed: int, pack: bool) -> None:
+def check_tiny(name: str, seed: int, pack: bool, must: tuple = ()) -> None:
     """The whole flow at a tiny preset on the card equals the plain CPU
-    flow, response row for response row."""
-    from spiral_tpu_torch import interop
+    flow, response row for response row; the card's run must launch each
+    kernel of `must`."""
+    from spiral_tpu_torch import interop, kernels
     from spiral_tpu_torch.params import preset
 
     p = preset(name)
     Client, Server, random_db, encode = _variant(pack)
     rows = []
     for dev in ("cpu", "cuda"):
+        kernels.reset_launches()
         client = Client(p, seed=seed, device=dev)
         pts = random_db(p, np.random.default_rng(seed))
         server = Server(p, encode(pts, p, torch.device(dev)), client.setup())
@@ -818,10 +896,12 @@ def check_tiny(name: str, seed: int, pack: bool) -> None:
             raise SystemExit(f"{name} on {dev}: wrong record")
         rows.append(interop.response_rows(resp))
     same = all(np.array_equal(a, b) for a, b in zip(*rows))
-    print(f"{name}: cuda response rows equal the plain cpu rows: {same}",
-          flush=True)
+    print(f"{name}: cuda response rows equal the plain cpu rows: {same}; "
+          f"launches on the card {dict(kernels.LAUNCHES)}", flush=True)
     if not same:
         raise SystemExit(f"{name}: cuda and cpu responses differ")
+    if not all(kernels.LAUNCHES[k] for k in must):
+        raise SystemExit(f"{name}: a kernel of {must} was never launched")
 
 
 def same_rows(a, b) -> bool:
@@ -892,7 +972,7 @@ def run_fold_forced(tag: str, server, answered: list, card: str,
 
 
 def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
-             batch_path: tuple) -> tuple[dict, dict]:
+             batch_path: tuple, path_not: tuple = ()) -> tuple[dict, dict]:
     """End to end at a full-size preset on the card: a database from numpy
     seed `seed`, a seeded client and three queries, each decoded against
     its record; then a batch of BATCH queries (indices 0, total_n - 1 and
@@ -901,7 +981,8 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
     (run_fold_forced).  Returns ({path: launches}, {path: launches of its
     last query}): the single run's launches count database encode and
     client setup too and must be nonzero for every kernel of `path`, and
-    the batch's for every kernel of `batch_path`."""
+    the batch's for every kernel of `batch_path`, and both zero for every
+    kernel of `path_not`."""
     from spiral_tpu_torch import kernels
     from spiral_tpu_torch.params import preset
 
@@ -953,8 +1034,10 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
         answered.append((idx, q, resp))
     launches = dict(kernels.LAUNCHES)
     print(f"{name} launches over the path: {launches}", flush=True)
-    if not all(launches[k] for k in path):
-        raise SystemExit(f"{name}: a kernel of the path was never launched")
+    if not all(launches[k] for k in path) or \
+            any(launches[k] for k in path_not):
+        raise SystemExit(f"{name}: a kernel of the path was never "
+                         f"launched, or one of {path_not} was")
     fd_ms = tm.first_multiply_us / 1e3
     print(f"{name} first-dim stage streams {db.data.numel() * 4 / 2**30:.2f} "
           f"GiB of encoded db in {fd_ms:.3f} ms (incl. inverse NTT): "
@@ -969,6 +1052,8 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
     batch = dict(kernels.LAUNCHES)
     report_batch(f"{name} batch", server, len(qs), seconds, db_bytes, batch,
                  batch_path, card)
+    if any(batch[k] for k in path_not):
+        raise SystemExit(f"{name} batch: launched one of {path_not}")
     for idx, q, r in zip(bidx, qs, resps):
         ok = np.array_equal(client.decode(r), pts[idx].astype(object))
         same = same_rows(r, server.process_query(q)[0])
@@ -1142,7 +1227,24 @@ def main() -> int:
     p, q = run_implicit("spiral_24_256", args.seed, card)
     paths.update(p)
     per_query.update(q)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = phase("6 implicit", t0)
+    check_tiny("tiny_stream", args.seed, pack=False)
+    check_tiny("tiny_subround", args.seed, pack=False, must=SUBROUND_PATH)
+    check_tiny("tiny_stream_pack", args.seed, pack=True)
+    for name, pack, path, batch_path, path_not in (
+            ("spiralstream_20_256", False, STREAM_PATH, STREAM_BATCH_PATH,
+             STREAM_NOT),
+            ("spiralstreampack_20_256", True, STREAM_PACK_PATH,
+             STREAM_PACK_BATCH_PATH, ())):
+        p, q = run_path(name, args.seed, card, pack, path, batch_path,
+                        path_not)
+        paths.update(p)
+        per_query.update(q)
+        gc.collect()
+        torch.cuda.empty_cache()      # the database is freed here
+    t0 = phase("7 stream", t0)
 
     out = []
     for kernel, (src, repl) in KERNEL_META.items():

@@ -1,6 +1,7 @@
-"""Public key material (counterpart of spiral_tpu/crypto/publicparams.py),
-single packed-query form: W_exp_left/right key-switch the expansion
-automorphisms, W_conv composes, V converts Regev to GSW."""
+"""Public key material (counterpart of spiral_tpu/crypto/publicparams.py):
+W_exp_left/right key-switch the expansion automorphisms, W_conv composes,
+V converts Regev to GSW.  A query whose parts are all uploaded directly
+(SpiralStream) is not expanded, and its W_exp_* are None."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,8 +17,8 @@ from .encrypt import Encryptor
 
 @dataclasses.dataclass
 class PublicParams:
-    W_exp_left: list     # g tensors (2, m_exp, 2, d), NTT
-    W_exp_right: list    # tensors (2, m_exp_right, 2, d), NTT
+    W_exp_left: list | None   # g tensors (2, m_exp, 2, d), NTT
+    W_exp_right: list | None  # tensors (2, m_exp_right, 2, d), NTT
     W_conv: torch.Tensor  # (n1, n0*m_conv, 2, d), NTT
     V: torch.Tensor       # (n1, 2*m_conv, 2, d), NTT
 
@@ -34,15 +35,30 @@ def expansion_keyswitch_matrices(enc: Encryptor, rounds: int, m_exp: int,
     return out
 
 
+def expansion_rounds(params: Params) -> tuple[int, int]:
+    """(g, right_rounds): the rounds of W_exp_left and of W_exp_right
+    (publicparams.py _pub_inner).  With an expansion plan, g is the
+    largest g of its expanded parts, 0 when both are uploaded directly."""
+    plan = params.expansion_plan()
+    if plan is None:
+        g, stop = params.g, params.stopround
+        return g, (stop + 1 if stop > 0 else g)
+    g = max((plan[part]["g"] for part in ("first", "rest")
+             if not plan[part]["direct"]), default=0)
+    return g, g
+
+
 def generate_public_params(params: Params, enc: Encryptor) -> PublicParams:
-    if params.expansion_plan() is not None:
-        raise NotImplementedError("only the packed one-ct query form")
+    """V is made even where the rest part is uploaded directly: the server
+    converts those cts with it, as the JAX server does (pir.py:190-196),
+    though the JAX size accounting leaves V out there."""
     d, dev = params.poly_len, enc.device
-    g, stop = params.g, params.stopround
-    right_rounds = stop + 1 if stop > 0 else g
-    W_left = expansion_keyswitch_matrices(enc, g, params.m_exp, d)
-    W_right = expansion_keyswitch_matrices(enc, right_rounds,
-                                           params.m_exp_right, d)
+    g, right_rounds = expansion_rounds(params)
+    W_left = W_right = None
+    if g > 0:
+        W_left = expansion_keyswitch_matrices(enc, g, params.m_exp, d)
+        W_right = expansion_keyswitch_matrices(enc, right_rounds,
+                                               params.m_exp_right, d)
     sr_ntt = ntt.forward(enc.keys.sr)[0, 0]
     G_scale = ntt.forward(build_gadget(params.n0, params.n0 * params.m_conv,
                                        d, dev))

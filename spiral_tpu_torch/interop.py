@@ -41,34 +41,52 @@ def secret_keys(Sp, sr, Sp_centered, sr_centered, device="cuda"
                       sr_centered=np.asarray(sr_centered, dtype=np.int64))
 
 
+def _keys(ws, device):
+    """A list of W_exp_*[r].data, or None where the JAX params hold None."""
+    return None if ws is None else [to_torch(w, device) for w in ws]
+
+
+def _keys_to_numpy(ws):
+    return None if ws is None else [to_numpy(w) for w in ws]
+
+
 def public_params(W_exp_left, W_exp_right, W_conv, V,
                   device="cuda") -> PublicParams:
-    """From spiral_tpu PublicParams: the lists of W_exp_*[r].data and
-    W_conv.data, V.data."""
+    """From spiral_tpu PublicParams: the lists of W_exp_*[r].data (None
+    where they are None: a direct upload) and W_conv.data, V.data."""
     return PublicParams(
-        W_exp_left=[to_torch(w, device) for w in W_exp_left],
-        W_exp_right=[to_torch(w, device) for w in W_exp_right],
+        W_exp_left=_keys(W_exp_left, device),
+        W_exp_right=_keys(W_exp_right, device),
         W_conv=to_torch(W_conv, device), V=to_torch(V, device))
+
+
+def public_params_to_numpy(pub: PublicParams) -> dict:
+    """The fields of a spiral_tpu PublicParams as uint32 arrays
+    (W_exp_left/right as lists, or None)."""
+    return {"W_exp_left": _keys_to_numpy(pub.W_exp_left),
+            "W_exp_right": _keys_to_numpy(pub.W_exp_right),
+            "W_conv": to_numpy(pub.W_conv), "V": to_numpy(pub.V)}
 
 
 def pack_public_params(v_W, W_exp_left, W_exp_right, V,
                        device="cuda") -> PackPublicParams:
     """From spiral_tpu.pack PackPublicParams: v_W, the lists of
-    W_exp_*[r].data and V.data."""
+    W_exp_*[r].data and V.data, each None where the JAX field is (a
+    direct upload)."""
     return PackPublicParams(
         v_W=to_torch(v_W, device),
-        W_exp_left=[to_torch(w, device) for w in W_exp_left],
-        W_exp_right=[to_torch(w, device) for w in W_exp_right],
-        V=to_torch(V, device))
+        W_exp_left=_keys(W_exp_left, device),
+        W_exp_right=_keys(W_exp_right, device),
+        V=None if V is None else to_torch(V, device))
 
 
 def pack_public_params_to_numpy(pub: PackPublicParams) -> dict:
     """The fields of a spiral_tpu.pack PackPublicParams as uint32 arrays
-    (W_exp_left/right as lists)."""
+    (W_exp_left/right as lists), None where the port's are None."""
     return {"v_W": to_numpy(pub.v_W),
-            "W_exp_left": [to_numpy(w) for w in pub.W_exp_left],
-            "W_exp_right": [to_numpy(w) for w in pub.W_exp_right],
-            "V": to_numpy(pub.V)}
+            "W_exp_left": _keys_to_numpy(pub.W_exp_left),
+            "W_exp_right": _keys_to_numpy(pub.W_exp_right),
+            "V": None if pub.V is None else to_numpy(pub.V)}
 
 
 def encoded_db(data, params: Params, device="cuda") -> EncodedDb:
@@ -106,15 +124,25 @@ def pack_encoded_db_to_jax_layout(db: EncodedDb) -> np.ndarray:
     return to_numpy(t.permute(3, 4, 2, 0, 1)[:, :, None])
 
 
-def query(seed: int, packed_b, device="cuda") -> Query:
-    """From a spiral_tpu Query (seed, packed_b), either client's."""
-    b = to_torch(packed_b, device)
-    return Query(seed=int(seed), packed_b=b, size_bytes=b.shape[-1] * 7)
+def query(seed: int, packed_b=None, device="cuda", *, first_b=None,
+          gsw_b=None) -> Query:
+    """From a spiral_tpu Query, either client's: its packed_b, or its
+    first_b and gsw_b (the direct form)."""
+    q = Query(seed=int(seed))
+    for name, b in (("packed_b", packed_b), ("first_b", first_b),
+                    ("gsw_b", gsw_b)):
+        if b is not None:
+            setattr(q, name, to_torch(b, device))
+            q.size_bytes += b.shape[0] * b.shape[-1] * 7   # 56-bit words
+    return q
 
 
-def query_to_numpy(q: Query) -> tuple[int, np.ndarray]:
-    """(seed, packed_b as uint32), the fields of a spiral_tpu Query."""
-    return q.seed, to_numpy(q.packed_b)
+def query_to_numpy(q: Query) -> dict:
+    """The fields of a spiral_tpu Query: seed, and packed_b, first_b and
+    gsw_b as uint32 arrays or None."""
+    return {"seed": q.seed, **{
+        name: None if getattr(q, name) is None else to_numpy(getattr(q, name))
+        for name in ("packed_b", "first_b", "gsw_b")}}
 
 
 def response_rows(resp) -> tuple[np.ndarray, np.ndarray]:

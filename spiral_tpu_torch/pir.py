@@ -1,15 +1,18 @@
 """Spiral PIR client and server on torch (counterpart of spiral_tpu/pir.py),
-packed one-ciphertext query on one device.
+on one device, for both query forms: the packed one-ciphertext query and
+SpiralStream's direct upload.
 
-SpiralServer.process_query runs the stages of the JAX ``full_packed``
-pipeline: reconstruct + expansion, composition, conversion, first-dim
-multiply + inverse NTT, folding, modulus switch.  On a CUDA device each
-stage is timed with CUDA events; on the CPU with the host clock.
-process_query_batch runs the same stages over a batch of queries (the JAX
-``full_packed_batch``): the database streams once per batch (K2 with all
-B queries' rows) and the fold is one K5 launch per round.  The server
-takes an EncodedDb or an ImplicitDb, whose slab K2 streams num_chunks
-times.
+SpiralServer.process_query runs the stages of the JAX ``full_packed`` /
+``full_direct`` pipelines: reconstruct + expansion, composition,
+conversion, first-dim multiply + inverse NTT, folding, modulus switch.  A
+direct query's cts are rebuilt from its seed, and a part of the query
+uploaded as subround cts is expanded g rounds (``reconstruct_direct``).
+On a CUDA device each stage is timed with CUDA events; on the CPU with
+the host clock.  process_query_batch runs the same stages over a batch of
+queries of one form (the JAX ``full_packed_batch`` / ``full_direct_batch``):
+the database streams once per batch (K2 with all B queries' rows) and the
+fold is one K5 launch per round.  The server takes an EncodedDb or an
+ImplicitDb, whose slab K2 streams num_chunks times.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from .crypto.decode import (Response, decode_response, modswitch_device,
 from .crypto.encrypt import Encryptor
 from .crypto.keys import SecretKeys, keygen
 from .crypto.publicparams import PublicParams, generate_public_params
-from .crypto.query import Query, generate_query, reconstruct_cts
+from .crypto.query import (Query, generate_query, query_b_rows,
+                           reconstruct_cts)
 from .server.convert import regev_to_gsw_batch, scal_to_mat_batch
 from .server.db import EncodedDb, ImplicitDb, encode_db, random_db
 from .server.expand import (coefficient_expansion, neg_monomial_ntts,
@@ -108,19 +112,24 @@ def db_tensor(db: EncodedDb | ImplicitDb) -> torch.Tensor:
 
 
 def stack_queries(queries: list[Query], device) -> tuple[list[int],
-                                                         torch.Tensor]:
-    """The batch's seeds and its b rows (B, 1, 1, 1, 2, d) on `device`."""
+                                                         torch.Tensor, bool]:
+    """The batch's seeds, its b rows (B, n, 1, 1, 2, d) on `device` and
+    whether they are of the direct form (query_b_rows: n = 1 for the
+    packed form).  A batch holds one form: ValueError otherwise, as the
+    JAX server stacks one form's fields for all queries."""
     if not queries:
         raise ValueError("empty batch")
+    forms = {q.packed_b is None for q in queries}
+    if len(forms) > 1:
+        raise ValueError("a batch mixes packed and direct queries")
     return ([q.seed for q in queries],
-            torch.stack([q.packed_b for q in queries]).to(device))
+            torch.stack([query_b_rows(q) for q in queries]).to(device),
+            forms.pop())
 
 
 class SpiralServer:
     def __init__(self, params: Params, db: EncodedDb | ImplicitDb,
                  pub: PublicParams):
-        if params.expansion_plan() is not None:
-            raise NotImplementedError("only the packed one-ct query form")
         self.params, self.db, self.pub = params, db, pub
         self.device = db_tensor(db).device
         self.num_chunks = db.num_chunks if isinstance(db, ImplicitDb) else 1
@@ -150,9 +159,40 @@ class SpiralServer:
             cv = reorder_from_stopround(cv, p.dim0, n_gsw)
         return cv[:, :p.dim0], cv[:, p.dim0:p.dim0 + n_gsw]
 
-    def expand(self, seed: int, packed_b: torch.Tensor):
-        first, gsw = self.expand_batch([seed], packed_b[None])
-        return first[0], gsw[0]
+    def reconstruct_direct_batch(self, seeds: list[int], bs: torch.Tensor):
+        """Direct queries' seeds and b rows (B, n_first + n_rest, 1, 1, 2,
+        d) -> first-dimension scalars and GSW sources, as expand_batch
+        gives them (the JAX reconstruct_direct, pir.py:311-334): the (-a,
+        b) cts rebuilt from the seeds, each part as uploaded if direct,
+        else each of its cts expanded g rounds with W[:g] and its first
+        `bits` slots kept (on the card K8a and K4, the part's cts of all
+        B queries as one batch)."""
+        p = self.params
+        plan = p.expansion_plan()
+        cts = reconstruct_cts(seeds, bs.to(self.device))
+        n_first = plan["first"]["n_cts"]
+        return (self._expand_part(cts[:, :n_first], plan["first"]),
+                self._expand_part(cts[:, n_first:], plan["rest"]))
+
+    def _expand_part(self, cts, part: dict):
+        """(B, n_cts, 2, 1, 2, d) -> (B, n_cts * bits, 2, 1, 2, d)."""
+        if part["direct"]:
+            return cts
+        g, bits = part["g"], part["bits"]
+        B, n = cts.shape[:2]
+        ex = coefficient_expansion(cts.flatten(0, 1), g,
+                                   self.pub.W_exp_left[:g],
+                                   self.pub.W_exp_right[:g], self.params)
+        return ex[:, :bits].reshape((B, n * bits) + cts.shape[2:])
+
+    def query_scalars_batch(self, queries: list[Query]):
+        """The expansion stage of a batch of one form: its first-dimension
+        scalars (B, dim0, 2, 1, 2, d) and GSW sources (B, nu_2*t_gsw, 2,
+        1, 2, d)."""
+        seeds, bs, direct = stack_queries(queries, self.device)
+        if direct:
+            return self.reconstruct_direct_batch(seeds, bs)
+        return self.expand_batch(seeds, bs)
 
     def compose(self, first_scalars):
         """([B,] dim0, 2, 1, 2, d) -> ([B,] dim0, n1, n0, 2, d)."""
@@ -192,9 +232,13 @@ class SpiralServer:
                                 g_buf=self._fold_g)
 
     def process_query(self, query: Query):
-        """Answer one query: (Response, ServerTimings)."""
+        """Answer one query of either form: (Response, ServerTimings).  A
+        direct query's reconstruction (and any part's expansion) is timed
+        as its expansion_us; the JAX server leaves that field at 0 for
+        direct queries, the time falling into its composition."""
         clock = StageClock(self.device)
-        first_scalars, gsw_scalars = self.expand(query.seed, query.packed_b)
+        first_b, gsw_b = self.query_scalars_batch([query])
+        first_scalars, gsw_scalars = first_b[0], gsw_b[0]
         clock.mark()
         C_reg = self.compose(first_scalars)
         clock.mark()
@@ -209,14 +253,14 @@ class SpiralServer:
         return response_from_device_rows(first, rest), _timings(clock)
 
     def process_query_batch(self, queries: list[Query]):
-        """Answer a batch of queries: (list[Response], seconds), the window
-        from the first stage until the response rows are on the host (the
-        JAX process_query_batch's).  The stage times of the batch are left
-        in ``last_batch_timings``."""
+        """Answer a batch of queries of one form: (list[Response], seconds),
+        the window from the first stage until the response rows are on the
+        host (the JAX process_query_batch's).  The stage times of the batch
+        are left in ``last_batch_timings``; a mixed batch raises
+        ValueError."""
         t0 = time.perf_counter()
         clock = StageClock(self.device)
-        seeds, packed = stack_queries(queries, self.device)
-        first_b, gsw_b = self.expand_batch(seeds, packed)
+        first_b, gsw_b = self.query_scalars_batch(queries)
         clock.mark()
         C_reg_b = self.compose(first_b)
         clock.mark()

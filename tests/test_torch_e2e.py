@@ -8,12 +8,14 @@ import jax.numpy as jnp
 import pytest
 
 from spiral_tpu import pir as jpir
+from spiral_tpu.crypto import query as j_query
 from spiral_tpu.crypto.query import reconstruct_cts as j_reconstruct_cts
 from spiral_tpu.params import Params, preset
 from spiral_tpu_torch import params as tparams
 from spiral_tpu.server.db import encode_db as j_encode_db
 from spiral_tpu.server.db import random_db as j_random_db
 from spiral_tpu_torch import interop
+from spiral_tpu_torch.crypto import query as t_query
 from spiral_tpu_torch.crypto.decode import decode_response
 from spiral_tpu_torch.crypto.query import reconstruct_cts
 from spiral_tpu_torch.pir import SpiralClient, SpiralServer, run_pir
@@ -91,11 +93,25 @@ def test_jax_rebuilds_torch_client_query():
     """The JAX server's reconstruct_cts turns a torch-client query into the
     same ciphertext as the port's: the a halves come from one stream."""
     q = SpiralClient(tparams.preset("tiny"), seed=5, device="cpu").query(3)
-    seed, packed_b = interop.query_to_numpy(q)
-    want = j_reconstruct_cts(jnp.int32(seed), jnp.asarray(packed_b))
+    fields = interop.query_to_numpy(q)
+    want = j_reconstruct_cts(jnp.int32(fields["seed"]),
+                             jnp.asarray(fields["packed_b"]))
     np.testing.assert_array_equal(
         interop.to_numpy(reconstruct_cts(q.seed, q.packed_b)),
         np.asarray(want))
+
+
+@pytest.mark.parametrize("cfg", ["tiny", "stopround"])
+def test_packed_sigma_matches_jax(cfg):
+    """The packed query's plaintext equals JAX _sigma_poly's as exact
+    integers, without and with the stopround interleave."""
+    p = preset("tiny") if cfg == "tiny" else Params(**STOP_CFG)
+    tp = tparams.preset("tiny") if cfg == "tiny" else \
+        tparams.Params(**STOP_CFG)
+    for idx in (0, p.total_n - 1, p.num_per + 1):
+        want = j_query._sigma_poly(p, idx)
+        got = t_query.sigma_poly(tp, idx, tp.g, tp.stopround)
+        assert (got == want).all()
 
 
 def test_torch_db_encoding_matches_jax(monkeypatch):

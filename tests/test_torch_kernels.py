@@ -71,12 +71,15 @@ def test_firstdim_kernel(cuda):
 
 # the fold template runs a cluster of 2*n1 blocks per (output ct, column,
 # limb), each through t_gsw digit NTTs two at a time: m_out 1 (one cluster
-# per column and limb) to 5, even and odd t_gsw
+# per column and limb) to 5, even and odd t_gsw; the presets' digit widths
+# (FOLD_T_GSW: 28-bit digits at t_gsw 2, 19 at 3, 12 at 5, 8 at 8, 7 at 9,
+# 6 at 11), odd ones with two carry chains of unequal length
 FOLD_SHAPES = [(d, m_out) for d in (256, 2048) for m_out in (1, 2, 4, 5)]
+FOLD_T_GSW = [2, 3, 5, 8, 9, 11]
 
 
 @pytest.mark.parametrize("d, m_out", FOLD_SHAPES)
-@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+@pytest.mark.parametrize("t_gsw", FOLD_T_GSW)
 def test_fold_kernel(cuda, t_gsw, d, m_out):
     cts = _residues(cuda, (2 * m_out, 3, 2, d))
     qn, qp = (_residues(cuda, (3, 3 * t_gsw, d)) for _ in range(2))
@@ -98,7 +101,7 @@ def test_expand_kernel(cuda, m, N, d):
 
 
 @pytest.mark.parametrize("d, m_out", FOLD_SHAPES)
-@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+@pytest.mark.parametrize("t_gsw", FOLD_T_GSW)
 def test_fold_pack_kernel(cuda, t_gsw, d, m_out):
     cts = _residues(cuda, (3, 2 * m_out, 2, 1, d))
     qn, qp = (_residues(cuda, (2, 2 * t_gsw, d)) for _ in range(2))
@@ -119,9 +122,12 @@ def test_pack_kernel(cuda, out_n, m_conv):
 # query tiles of the MMA), so 11 queries at K = 2,048 run in one pass and
 # 17 in two; chunked (the implicit mode) with a roll of the query per
 # chunk; m = 100 is no multiple of the 16-column tile, m = 102 no multiple
-# of 4 either (the stage fills with 4-byte copies)
+# of 4 either (the stage fills with 4-byte copies); the stream databases'
+# shapes at B = 1 and 8: spiralstream_20_256 (K 1,024, n1 3, m 128) and
+# spiralstreampack_20_256 (K 64, n1 2, m 1,024)
 @pytest.mark.parametrize("B, n1, K, m, chunks", [
-    (8, 3, 512, 128, 1), (8, 2, 512, 128, 1), (11, 3, 2048, 128, 1),
+    (1, 3, 1024, 128, 1), (8, 3, 1024, 128, 1), (1, 2, 64, 1024, 1),
+    (8, 2, 64, 1024, 1), (8, 3, 512, 128, 1), (8, 2, 512, 128, 1), (11, 3, 2048, 128, 1),
     (2, 3, 512, 128, 3), (8, 3, 1024, 128, 2), (3, 2, 256, 100, 2),
     (1, 3, 64, 256, 1), (1, 1, 1024, 100, 3), (1, 4, 64, 102, 2),
     (8, 1, 64, 2048, 1), (8, 4, 1024, 102, 1), (8, 2, 64, 100, 3),
@@ -171,7 +177,7 @@ def test_firstdim_kernel_worst_words(cuda, word, B, n1):
 
 @pytest.mark.parametrize("m_out", [1, 2, 5])
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+@pytest.mark.parametrize("t_gsw", FOLD_T_GSW)
 def test_fold_batch_kernel(cuda, t_gsw, B, m_out):
     d = 2048
     cts = _residues(cuda, (B, 2 * m_out, 3, 2, d))
@@ -182,7 +188,7 @@ def test_fold_batch_kernel(cuda, t_gsw, B, m_out):
 
 @pytest.mark.parametrize("m_out", [1, 2, 5])
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("t_gsw", [8, 9, 11])
+@pytest.mark.parametrize("t_gsw", FOLD_T_GSW)
 def test_fold_pack_batch_kernel(cuda, t_gsw, B, m_out):
     d = 2048
     cts = _residues(cuda, (B, 4, 2 * m_out, 2, 1, d))

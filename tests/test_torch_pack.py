@@ -138,9 +138,9 @@ def test_jax_pack_server_answers_torch_client():
     jserver = jpack.PackServer(p, jpack.encode_pack_db(pts, p), jpub)
     idx = 6
     q = client.query(idx)
-    seed, packed_b = interop.query_to_numpy(q)
-    want, _ = jserver.process_query(JQuery(seed=seed,
-                                           packed_b=jnp.asarray(packed_b)))
+    fields = interop.query_to_numpy(q)
+    want, _ = jserver.process_query(JQuery(
+        seed=fields["seed"], packed_b=jnp.asarray(fields["packed_b"])))
     assert np.array_equal(client.decode(want), pts[idx].astype(object))
     tserver = pack.PackServer(tp, pack.encode_pack_db(pts, tp, "cpu"), tpub)
     got, _ = tserver.process_query(q)
@@ -156,6 +156,13 @@ def test_run_pack_decodes(nonoise):
         assert correct and timings.total_us > 0
 
 
-def test_stream_pack_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        pack.PackClient(tparams.preset("tiny_stream_pack"), device="cpu")
+def test_stream_pack_client_builds_direct_query():
+    """At tiny_stream_pack the port's PackClient builds the direct query:
+    the JAX client's fields, of its shapes and size_bytes."""
+    name = "tiny_stream_pack"
+    want = jpack.PackClient(preset(name), seed=2).query(5)
+    got = pack.PackClient(tparams.preset(name), device="cpu").query(5)
+    assert want.packed_b is None and got.packed_b is None
+    assert tuple(got.first_b.shape) == np.asarray(want.first_b).shape
+    assert tuple(got.gsw_b.shape) == np.asarray(want.gsw_b).shape
+    assert got.size_bytes == want.size_bytes
