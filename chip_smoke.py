@@ -63,7 +63,20 @@ Phases, each printing its own lines and its wall time:
      the card against the plain CPU flow, then spiralstream_20_256 as in
      phase 4 (both query parts uploaded directly: K4 and K8a must not
      launch) and spiralstreampack_20_256 as in phase 5, each database
-     freed before the next.
+     freed before the next;
+  8. oversized items (spiral_tpu_torch/factored.py): spiral_20_256 with
+     13 sub-databases (26 GiB encoded, each drawn and encoded in turn),
+     three queries through process_query and process_query_fused, all 13
+     chunks of each decoded, one K2 launch per run; then K2 at the
+     factored shape (m 3,328) on the real database and K3's round 1
+     (m_out 832) on the real first-dimension output against their plain
+     versions.
+Phases 4, 5 and 7 also send one query of each full preset over the wire
+(serialize.py: query bytes -> process_query_fused -> response bytes ->
+decode, equal to its process_query rows), count the host syncs torch
+reports inside the fused path's enqueue, rebuild the server from the
+public parameters' bytes, and at spiral_20_256 check final_ciphertext and
+round-trip the 2 GiB encoded database through save_db / load_db.
 Each driven path counts launches from 0 and fails if a kernel of the path
 was never launched.  The line before last is the kernels' JSON, the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero.
@@ -75,9 +88,13 @@ import collections
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -159,6 +176,14 @@ FOLD_FORCED = (("K3 every round", {}, ("fold",), ("fold_ntt",
                                                   "fold_contract")),
                ("K8b every round", collections.defaultdict(int),
                 ("fold_ntt", "fold_contract"), ("fold",)))
+# the oversized-item configuration of phase 8: a 100,000-B item at
+# spiral_20_256 is served as 13 sub-databases (the JAX package's
+# paramgen.search.select_params(14, 100000): the spiral_20_256 parameters
+# with factor 13), 26 GiB encoded on the card
+FACTORED_PRESET, FACTOR = "spiral_20_256", 13
+# the preset whose wire phase also checks final_ciphertext and round-trips
+# its 2 GiB encoded database through save_db / load_db
+CHECKPOINT_PRESET = "spiral_20_256"
 BATCH = 8
 # a kernel whose mean over back-to-back launches is below this (the least
 # of TIMINGS event timings) is timed again as the replay of a CUDA graph of
@@ -350,34 +375,43 @@ def check_kernels(seed: int) -> dict:
     cases += stream_cases(gen)
 
     results = {}
-    for name, kernel, run, plain, reps, inputs, prods, *macs in cases:
-        # macs: int8 tensor-core multiply-adds, where the kernel has them
-        macs = macs[0] if macs else 0
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        del want
-        nbytes = sum(t.numel() * 4 for t in inputs) + got.numel() * 4
-        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = max(prods / INT_PRODUCTS_PER_S, macs / INT8_MACS_PER_S) * 1e3
-        ms, timed_by = cuda_ms(run, reps)
-        rec = {"max_abs_err": err, "ms": ms, "timed_by": timed_by,
-               "plain_ms": cuda_ms(plain, 1, 1)[0],
-               "bound_ms": max(mem_ms, ops_ms),
-               "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
-               "bytes": nbytes, "products": prods, "int8_macs": macs,
-               "shape": list(got.shape)}
-        print(f"check {name}: max_abs_err={err} (tolerance 0) kernel "
-              f"{rec['ms']:.4f} ms ({timed_by}) plain {rec['plain_ms']:.4f} "
-              f"ms bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-              f"{nbytes} B, {prods} products, {macs} int8 MACs) out "
-              f"{tuple(got.shape)}", flush=True)
-        if err:
-            raise SystemExit(f"{name}: kernel differs from its plain version")
-        results.setdefault(kernel, {})[name] = rec
-        del got
-        torch.cuda.empty_cache()
+    for case in cases:
+        results.setdefault(case[1], {})[case[0]] = check_case(*case)
     return results
+
+
+def check_case(name, kernel, run, plain, reps, inputs, prods, macs=0
+               ) -> dict:
+    """One kernel case: the kernel's output against its plain version's
+    (tolerance 0), the kernel timed as cuda_ms does over `reps` launches,
+    the plain version once, and the bound from the inputs' and output's
+    bytes, `prods` modular products and `macs` int8 tensor-core
+    multiply-adds.  Fails if the two differ."""
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    del want
+    nbytes = sum(t.numel() * 4 for t in inputs) + got.numel() * 4
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(prods / INT_PRODUCTS_PER_S, macs / INT8_MACS_PER_S) * 1e3
+    ms, timed_by = cuda_ms(run, reps)
+    rec = {"max_abs_err": err, "ms": ms, "timed_by": timed_by,
+           "plain_ms": cuda_ms(plain, 1, 1)[0],
+           "bound_ms": max(mem_ms, ops_ms),
+           "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+           "bytes": nbytes, "products": prods, "int8_macs": macs,
+           "shape": list(got.shape)}
+    print(f"check {name}: max_abs_err={err} (tolerance 0) kernel "
+          f"{rec['ms']:.4f} ms ({timed_by}) plain {rec['plain_ms']:.4f} "
+          f"ms bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+          f"{nbytes} B, {prods} products, {macs} int8 MACs; "
+          f"{rec['bound_ms'] / ms:.1%} of it) out {tuple(got.shape)}",
+          flush=True)
+    if err:
+        raise SystemExit(f"{name}: kernel differs from its plain version")
+    del got
+    torch.cuda.empty_cache()
+    return rec
 
 
 def fold_batch_case(gen, tag: str, t: int, m_out: int, per_q_shape):
@@ -1069,7 +1103,256 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
                                            decode=(client, pts))
         paths.update(forced)
         per_q.update(forced_q)
+    paths[f"{name} wire"] = run_wire(
+        name, client, server, pub, pts, int(rng.integers(0, params.total_n)),
+        pack, path, path_not, card)
     return paths, per_q
+
+
+def count_syncs(run) -> list[str]:
+    """The host syncs torch reports while run() runs
+    (torch.cuda.set_sync_debug_mode("warn")): for each, the line that
+    called it and the first line of the warning."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}: "
+                 f"{str(w.message).splitlines()[0]}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def print_syncs(tag: str, syncs: list[str]) -> None:
+    counts = collections.Counter(syncs)
+    print(f"{tag}: {len(syncs)} host syncs inside the enqueue of one query "
+          f"(torch sync debug mode), at {len(counts)} sites: "
+          f"{dict(counts)}", flush=True)
+
+
+def run_wire(name: str, client, server, pub, pts, idx: int, pack: bool,
+             path: tuple, path_not: tuple, card: str) -> dict:
+    """One query over the wire (serialize.py): query_to_bytes ->
+    query_from_bytes -> process_query_fused -> response_to_bytes ->
+    response_from_bytes -> decode, against its record and its
+    process_query rows; the wire sizes beside the Params' accounting; the
+    host syncs inside the fused path's enqueue; the public parameters
+    through SPP1 bytes into a second server (equal rows).  At
+    CHECKPOINT_PRESET also final_ciphertext (its modulus switch must give
+    the rows) and a save_db / load_db round trip of the encoded database
+    into a temporary directory.  Returns the fused path's launches,
+    counted from 0 before query_to_bytes, which must include every kernel
+    of `path` and none of `path_not`."""
+    from spiral_tpu_torch import interop, kernels, serialize
+    from spiral_tpu_torch.crypto.decode import (modswitch_device,
+                                                response_from_device_rows)
+
+    p = server.params
+    rows, cols = (p.out_n + 1, p.out_n) if pack else (p.n1, p.n2)
+    Server = type(server)
+    q = client.query(idx)
+    want, tm = server.process_query(q)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    qb = serialize.query_to_bytes(q, p)
+    resp, seconds = server.process_query_fused(
+        serialize.query_from_bytes(qb, p, server.device))
+    rb = serialize.response_to_bytes(resp, p)
+    back = serialize.response_from_bytes(rb, p, rows, cols)
+    launches = dict(kernels.LAUNCHES)
+    ok = np.array_equal(client.decode(back), pts[idx].astype(object))
+    same = same_rows(back, want)
+    print(f"{name} wire query idx={idx}: query {len(qb)} B (Params."
+          f"query_size_bytes {p.query_size_bytes()}, client size_bytes "
+          f"{q.size_bytes}), response {len(rb)} B (Params."
+          f"response_size_bytes {p.response_size_bytes()}); decodes={ok}, "
+          f"rows equal process_query's={same}; process_query_fused "
+          f"{seconds * 1e3:.3f} ms (host clock until the rows are on the "
+          f"host) vs process_query stages {tm.total_us / 1e3:.3f} ms (cuda "
+          f"events) stages_us="
+          f"{ {k: round(v, 1) for k, v in vars(tm).items()} } launches over "
+          f"the wire run (fused: a warm run and a timed one)={launches} "
+          f"[{card}]", flush=True)
+    if not (ok and same):
+        raise SystemExit(f"{name} wire: decodes={ok}, rows equal={same}")
+    if not all(launches[k] for k in path) or \
+            any(launches[k] for k in path_not):
+        raise SystemExit(f"{name} wire: a kernel of the path was never "
+                         f"launched, or one of {path_not} was")
+    print_syncs(f"{name} process_query_fused",
+                count_syncs(lambda: server._run_single(q)))
+
+    pb = serialize.public_params_to_bytes(pub)
+    pub2 = serialize.public_params_from_bytes(pb, p, server.device)
+    same = same_rows(Server(p, server.db, pub2).process_query(q)[0], want)
+    print(f"{name} wire public params: {len(pb)} B (Params."
+          f"public_param_size_bytes {p.public_param_size_bytes()}); a "
+          f"server on the loaded ones gives equal rows={same}", flush=True)
+    if not same:
+        raise SystemExit(f"{name} wire: public params changed the rows")
+    if name != CHECKPOINT_PRESET:
+        return launches
+
+    final = server.final_ciphertext(q)
+    same = same_rows(response_from_device_rows(
+        *modswitch_device(final, p)), want)
+    print(f"{name} final_ciphertext {tuple(final.shape)}: its modulus "
+          f"switch equals process_query's rows={same}", flush=True)
+    if not same:
+        raise SystemExit(f"{name}: final_ciphertext disagrees")
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        need = server.db.data.numel() * 4
+        print(f"{name} checkpoint: {free / 2**30:.1f} GiB free in the "
+              f"temporary directory, {need / 2**30:.2f} GiB to write",
+              flush=True)
+        if free < need * 1.05:
+            raise SystemExit(f"{name} checkpoint: no room for the database")
+        base = os.path.join(tmp, "db")
+        t0 = time.perf_counter()
+        interop.encoded_db_to_jax_layout(server.db)   # save_db's host copy
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serialize.save_db(server.db, base)
+        t1 = time.perf_counter()
+        db2 = serialize.load_db(base, server.device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(base + ".npy")
+        equal = torch.equal(db2.data, server.db.data)
+        same = same_rows(Server(p, db2, pub).process_query(q)[0], want)
+        del db2
+    print(f"{name} checkpoint: .npy {size} B saved in {t1 - t0:.2f} s (of "
+          f"which the copy to the host in the JAX layout alone takes "
+          f"{t_host:.2f} s), "
+          f"loaded to the card in {t2 - t1:.2f} s; torch.equal to the "
+          f"encoded database={equal}, a server on it gives equal rows="
+          f"{same}", flush=True)
+    if not (equal and same):
+        raise SystemExit(f"{name} checkpoint: equal={equal}, rows={same}")
+    return launches
+
+
+def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
+                 factor: int = FACTOR) -> tuple[dict, dict, dict]:
+    """Phase 8, oversized items: `factor` sub-databases at `name`, each
+    drawn from numpy seed `seed` and encoded into its column block on the
+    card one at a time, the host keeping only the queried records; three
+    queries (index 0, total_n - 1, a random one) through process_query
+    and process_query_fused, every chunk decoded; K2 must launch once per
+    run of a query, and K1, K3, K4 and K8a must launch.  Then K2 at the
+    factored shape on the real database and K3's round 1 on the real
+    first-dimension output, each held to its plain version and timed.
+    Returns ({path: launches}, {path: launches of its last query},
+    {kernel: {case: record}})."""
+    from spiral_tpu_torch import kernels
+    from spiral_tpu_torch.factored import (FactoredSpiralServer,
+                                           decode_factored,
+                                           encode_factored_db)
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.pir import SpiralClient
+    from spiral_tpu_torch.server import firstdim, fold
+    from spiral_tpu_torch.server.db import random_db
+
+    params = preset(name)
+    rng = np.random.default_rng(seed)
+    idxs = [0, params.total_n - 1, int(rng.integers(0, params.total_n))]
+    kept = {i: [] for i in idxs}
+    draw = [0.0]
+
+    def sub_dbs():
+        for _ in range(factor):
+            t = time.perf_counter()
+            pts = random_db(params, rng)
+            draw[0] += time.perf_counter() - t
+            for i in idxs:
+                kept[i].append(pts[i])
+            yield pts
+
+    t0 = time.perf_counter()
+    db = encode_factored_db(sub_dbs(), params, "cuda", factor=factor)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    client = SpiralClient(params, seed=seed, device="cuda")
+    server = FactoredSpiralServer(params, db, client.setup())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    db_bytes = db.data.numel() * 4
+    item_bytes = params.total_n * factor * params.n0 * params.n2 * \
+        params.poly_len * int(np.log2(params.p_db)) // 8
+    print(f"{name} factored x{factor}: {db_bytes / 2**30:.2f} GiB encoded "
+          f"on the card ({tuple(db.data.shape)}), {item_bytes} B of items; "
+          f"setup: draw {draw[0]:.2f} s, encode {t1 - t0 - draw[0]:.2f} s, "
+          f"client keys+public params and server {t2 - t1:.2f} s",
+          flush=True)
+
+    kernels.reset_launches()
+    for idx in idxs:
+        q = client.query(idx)
+        want = np.stack(kept[idx]).astype(object)
+        torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
+        resps, tm = server.process_query(q)
+        per_query = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        ok = np.array_equal(decode_factored(client, resps), want)
+        before = dict(kernels.LAUNCHES)
+        fused, seconds = server.process_query_fused(q)
+        fused_launches = {k: v - before[k]
+                          for k, v in kernels.LAUNCHES.items()}
+        fok = np.array_equal(decode_factored(client, fused), want)
+        same = all(same_rows(a, b) for a, b in zip(fused, resps))
+        stages = {k: round(v, 1) for k, v in vars(tm).items()}
+        print(f"{name} factored query idx={idx}: all {factor} chunks "
+              f"decode: process_query={ok}, process_query_fused={fok}, "
+              f"rows equal={same}; server {tm.total_us / 1e3:.3f} ms (cuda "
+              f"events) stages_us={stages}, fused {seconds * 1e3:.3f} ms "
+              f"(host clock until the rows are on the host); first dim "
+              f"{db_bytes / tm.first_multiply_us / 1e3:.1f} GB/s of 3,350 "
+              f"(incl. the inverse NTT); launches: process_query="
+              f"{per_query}, process_query_fused (two runs)="
+              f"{fused_launches} [{card}]", flush=True)
+        if not (ok and fok and same):
+            raise SystemExit(f"{name} factored query {idx}: decodes={ok}, "
+                             f"fused decodes={fok}, rows equal={same}")
+        if per_query["firstdim"] != 1 or fused_launches["firstdim"] != 2:
+            raise SystemExit(f"{name} factored: K2 launched "
+                             f"{per_query['firstdim']} times in a query")
+    launches = dict(kernels.LAUNCHES)
+    print(f"{name} factored launches over the path: {launches}", flush=True)
+    if not all(launches[k] for k in SPIRAL_PATH):
+        raise SystemExit(f"{name} factored: a kernel of the path was never "
+                         f"launched")
+    print_syncs(f"{name} factored process_query_fused",
+                count_syncs(lambda: server._run_single(q)))
+
+    # the kernels at the factored shapes, on the real database
+    p = params
+    first_b, gsw_b = server.query_scalars_batch([q])
+    C_reg = server.compose(first_b[0])
+    q_pos, q_neg = server.convert(gsw_b[0])
+    qk = firstdim.reorient_query(C_reg)
+    K, m = db.data.shape[2:]
+    checks = {"firstdim": {}, "fold": {}}
+    checks["firstdim"][f"firstdim_factored_x{factor}"] = check_case(
+        f"firstdim_factored_x{factor}", "firstdim",
+        lambda: firstdim.multiply_query_by_db(db.data, qk),
+        lambda: firstdim.multiply_plain(db.data, qk), 5, [db.data, qk], 0,
+        K2_MACS_PER_PRODUCT * 2 * p.poly_len * K * m * p.n1)
+    cts = server.first_dim(C_reg)
+    qn, qp = q_neg[0].contiguous(), q_pos[0].contiguous()
+    m_out = cts.shape[0] // 2
+    checks["fold"][f"fold_factored_x{factor}_round1"] = check_case(
+        f"fold_factored_x{factor}_round1", "fold",
+        lambda: fold.fold_round(cts, qn, qp, p.t_gsw),
+        lambda: fold.fold_round_plain(cts, qn, qp, p.t_gsw), 5,
+        [cts, qn, qp], fold_products(m_out, p.n1, p.n2, p.t_gsw,
+                                     p.poly_len))
+    return ({f"{name} factored": launches},
+            {f"{name} factored": per_query}, checks)
 
 
 def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
@@ -1245,6 +1528,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()      # the database is freed here
     t0 = phase("7 stream", t0)
+    p, q, c = run_factored(args.seed, card)
+    paths.update(p)
+    per_query.update(q)
+    for kernel, recs in c.items():
+        checks[kernel].update(recs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = phase("8 factored", t0)
 
     out = []
     for kernel, (src, repl) in KERNEL_META.items():

@@ -3,6 +3,8 @@
 64-bit integer type makes unnecessary)."""
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..params import B_I, P_I
@@ -10,8 +12,11 @@ from ..params import B_I, P_I
 MODS = (P_I, B_I)
 
 
+@lru_cache(maxsize=None)
 def p_col(device, dtype=torch.int64) -> torch.Tensor:
-    """(2, 1) tensor of the moduli, broadcasting over (..., 2, d)."""
+    """(2, 1) tensor of the moduli, broadcasting over (..., 2, d); made
+    once per (device, dtype), since a copy to the card syncs the host.
+    Callers only read it."""
     return torch.tensor([[P_I], [B_I]], dtype=dtype, device=device)
 
 

@@ -53,8 +53,9 @@ def random_bits(keys: list[tuple[int, int]], shape, device) -> torch.Tensor:
     int64, one key's stream per row."""
     n = math.prod(shape)
     assert n < (1 << 32)
-    k0, k1 = (torch.tensor([k[j] for k in keys], dtype=torch.int64,
-                           device=device)[:, None] for j in (0, 1))
+    # non_blocking: the copy of the keys to the card does not sync the host
+    k0, k1 = (torch.tensor([k[j] for k in keys], dtype=torch.int64)
+              .to(device, non_blocking=True)[:, None] for j in (0, 1))
     lo = torch.arange(n, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32((k0, k1), torch.zeros_like(lo), lo)
     return (b0 ^ b1).reshape((len(keys),) + tuple(shape))

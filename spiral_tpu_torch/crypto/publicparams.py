@@ -21,6 +21,7 @@ class PublicParams:
     W_exp_right: list | None  # tensors (2, m_exp_right, 2, d), NTT
     W_conv: torch.Tensor  # (n1, n0*m_conv, 2, d), NTT
     V: torch.Tensor       # (n1, 2*m_conv, 2, d), NTT
+    size_bytes: int = 0   # the wire size where they came as bytes
 
 
 def expansion_keyswitch_matrices(enc: Encryptor, rounds: int, m_exp: int,

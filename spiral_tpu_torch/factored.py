@@ -1,0 +1,90 @@
+"""Oversized items (counterpart of spiral_tpu/factored.py): an item of F
+records is stored column-wise, chunk f of every item forming sub-database
+f, and one query selects index idx in all F sub-databases at once; the F
+responses decode to the item's chunks (ref: select_params.py:291-303,
+which reruns the whole binary F times).
+
+The F sub-databases sit side by side in the columns of one encoded
+database (2, d, K, F*num_per*n2), sub-database f in columns f*num_per*n2
+onwards, so the first-dimension multiply is one K2 launch that streams
+all of them (the JAX package folds the factor axis into its MXU output
+the same way).  Its F*num_per output cts fold as one ct axis, one K3 (or
+K8b) launch per round for all sub-databases: a round pairs cts (2o,
+2o+1) and num_per is even, so a pair never crosses a sub-database, and
+nu_2 rounds leave each sub-database's survivor.  The modulus switch runs
+once over the F survivors.  Expansion, composition and conversion are a
+SpiralServer's, run once per query.
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from .params import Params
+from .crypto.decode import responses_from_device_rows
+from .pir import SpiralClient, SpiralServer
+from .server.db import EncodedDb, encode_db
+from .server.fold import fold_rounds
+
+
+def encode_factored_db(pts: np.ndarray | Iterable[np.ndarray],
+                       params: Params, device="cuda",
+                       factor: int | None = None) -> EncodedDb:
+    """pts (total_n, F, n0, n2, d), as the JAX function takes it, or the F
+    sub-databases (total_n, n0, n2, d) one at a time: a sequence, or an
+    iterator with `factor` = F.  Each is encoded straight into its column
+    block of the (2, d, K, F*num_per*n2) database on `device` (encode_db's
+    blocks), so the host holds one sub-database at a time."""
+    if isinstance(pts, np.ndarray):
+        subs, factor = (pts[:, f] for f in range(pts.shape[1])), pts.shape[1]
+    else:
+        subs, factor = pts, len(pts) if factor is None else factor
+    m = params.num_per * params.n2
+    data = torch.empty((2, params.poly_len, params.dim0 * params.n0,
+                        factor * m), dtype=torch.int32, device=device)
+    n = 0
+    for sub in subs:
+        if n == factor:
+            raise ValueError(f"more than factor = {factor} sub-databases")
+        encode_db(sub, params, device, out=data[..., n * m:(n + 1) * m])
+        n += 1
+    if n != factor:
+        raise ValueError(f"{n} sub-databases, factor = {factor}")
+    return EncodedDb(data=data, params=params)
+
+
+class FactoredSpiralServer(SpiralServer):
+    """A SpiralServer over a factored database: process_query gives
+    (list of F Responses, ServerTimings), process_query_fused (list of F
+    Responses, seconds) and final_ciphertext the F survivors (F, n1, n2,
+    2, d).  The stage times are CUDA events, as SpiralServer's, with the
+    fold as folding_us and the modulus switch as modswitch_us (the JAX
+    server reports the two together as folding_us).  The fold's K8b
+    storage is the one a single database's server makes: a round whose G
+    is larger (F times, in round 1) allocates its own."""
+
+    def __init__(self, params: Params, db: EncodedDb, pub):
+        super().__init__(params, db, pub)
+        m = params.num_per * params.n2
+        if db.data.shape[-1] % m:
+            raise ValueError(f"{db.data.shape[-1]} database columns are not "
+                             f"a multiple of num_per*n2 = {m}")
+        self.factor = db.data.shape[-1] // m
+
+    def fold(self, cts_coeff, q_pos, q_neg):
+        """(F*num_per, n1, n2, 2, d) -> the F survivors: nu_2 rounds (the
+        ct axis alone would give log2(F*num_per))."""
+        return fold_rounds(cts_coeff, q_pos, q_neg, self.params,
+                           num_rounds=self.params.nu_2, g_buf=self._fold_g)
+
+    _response = staticmethod(responses_from_device_rows)
+
+    def process_query_batch(self, queries):
+        raise ValueError("a factored server answers one query at a time")
+
+
+def decode_factored(client: SpiralClient, resps) -> np.ndarray:
+    """-> (F, n0, n2, d) item chunks."""
+    return np.stack([client.decode(r) for r in resps])

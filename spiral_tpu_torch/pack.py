@@ -9,7 +9,8 @@ PackServer.process_query runs: expansion (K1, K8a, K4), conversion to GSW
 (``regev_to_simple_gsw``), the first-dimension multiply with n1 = 2 query
 rows (K2) and its inverse NTT, the unsigned fold rounds (K6), packing (K7)
 and its inverse NTT, and the modulus switch.  On a CUDA device each stage
-is timed with CUDA events.  process_query_batch runs them over a batch
+is timed with CUDA events; process_query_fused runs them untimed, back to
+back (pir.serve_fused).  process_query_batch runs them over a batch
 (the JAX ``full_packed_batch``): K2 streams the database once for all
 queries, the fold is one K5 launch per round and K7 one launch.  The
 server takes an EncodedDb or an ImplicitDb (served one query at a time,
@@ -43,7 +44,8 @@ from .crypto.publicparams import expansion_keyswitch_matrices
 from .crypto.query import (Query, encrypt_b_batch, gsw_digit_values,
                            new_seed, packed_query, reconstruct_cts,
                            sigmas_ntt)
-from .pir import ServerTimings, StageClock, db_tensor, stack_queries
+from .pir import (ServerTimings, StageClock, db_tensor, no_mark,
+                  serve_fused, stack_queries)
 from .server import db as db_mod
 from .server.db import EncodedDb, ImplicitDb, bitrev_perm
 from .server.expand import coefficient_expansion, neg_monomial_ntts
@@ -69,6 +71,7 @@ class PackPublicParams:
     W_exp_left: list | None    # g tensors (2, m_exp, 2, d), NTT
     W_exp_right: list | None   # stop+1 tensors (2, m_exp_right, 2, d), NTT
     V: torch.Tensor | None     # (2, 2*m_conv, 2, d) conversion key, NTT
+    size_bytes: int = 0        # the wire size where they came as bytes
 
 
 def generate_pack_public_params(params: Params, enc: Encryptor
@@ -269,22 +272,22 @@ class PackServer:
         q_pos = q_pos.flip(-5)
         return q_pos, sub_raw(self._g_ntt.expand_as(q_pos), q_pos)
 
-    def query_stages_batch(self, queries: list[Query], clock: StageClock):
-        """The expansion and conversion stages of a batch of one form, a
-        clock mark after each: the first-dimension scalars (B, dim0, 2, 1,
-        2, d) and q_pos, q_neg (B, nu_2, 2, 2*t_gsw, 2, d).  A direct
+    def query_stages_batch(self, queries: list[Query], mark=no_mark):
+        """The expansion and conversion stages of a batch of one form,
+        `mark` called after each: the first-dimension scalars (B, dim0, 2,
+        1, 2, d) and q_pos, q_neg (B, nu_2, 2, 2*t_gsw, 2, d).  A direct
         batch's reconstruction is its expansion stage, conv_direct its
         conversion."""
         seeds, bs, direct = stack_queries(queries, self.device)
         if direct:
             first_b, gsw_b = self.reconstruct_direct_batch(seeds, bs)
-            clock.mark()
+            mark()
             q_pos_b, q_neg_b = self.conv_direct(gsw_b)
         else:
             first_b, gsw_b = self.expand_batch(seeds, bs)
-            clock.mark()
+            mark()
             q_pos_b, q_neg_b = self.convert(gsw_b)
-        clock.mark()
+        mark()
         return first_b, q_pos_b, q_neg_b
 
     def first_dim_batch(self, first_b):
@@ -319,20 +322,33 @@ class PackServer:
         return ntt.inverse(pack_ciphertexts(result.contiguous(),
                                             self.pub.v_W))
 
+    def _run_single(self, query: Query, mark=no_mark):
+        """Every stage of one query, enqueued, `mark` called after each:
+        the response rows on the device."""
+        first, q_pos, q_neg = (x[0] for x in self.query_stages_batch(
+            [query], mark))
+        cts = self.first_dim(first)
+        mark()
+        result = self.fold(cts, q_pos, q_neg)
+        mark()
+        packed = self.pack(result)
+        mark()
+        rows = modswitch_device(packed, self.params)
+        mark()
+        return rows
+
+    _response = staticmethod(response_from_device_rows)
+
     def process_query(self, query: Query):
         """Answer one query of either form: (Response, ServerTimings)."""
         clock = StageClock(self.device)
-        first, q_pos, q_neg = (x[0] for x in self.query_stages_batch(
-            [query], clock))
-        cts = self.first_dim(first)
-        clock.mark()
-        result = self.fold(cts, q_pos, q_neg)
-        clock.mark()
-        packed = self.pack(result)
-        clock.mark()
-        first_row, rest = modswitch_device(packed, self.params)
-        clock.mark()
-        return response_from_device_rows(first_row, rest), _timings(clock)
+        rows = self._run_single(query, clock.mark)
+        return self._response(*rows), _timings(clock)
+
+    def process_query_fused(self, query: Query):
+        """The serving path: (Response, seconds), the seconds of a second
+        run (pir.serve_fused) until the response rows are on the host."""
+        return serve_fused(self, query)
 
     def process_query_batch(self, queries: list[Query]):
         """Answer a batch of queries of one form: (list[Response],
@@ -346,7 +362,8 @@ class PackServer:
                 "implicit one")
         t0 = time.perf_counter()
         clock = StageClock(self.device)
-        first_b, q_pos_b, q_neg_b = self.query_stages_batch(queries, clock)
+        first_b, q_pos_b, q_neg_b = self.query_stages_batch(queries,
+                                                            clock.mark)
         cts_b = self.first_dim_batch(first_b)
         clock.mark()
         results = self.fold_batch(cts_b, q_pos_b, q_neg_b)

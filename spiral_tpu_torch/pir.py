@@ -13,6 +13,11 @@ queries of one form (the JAX ``full_packed_batch`` / ``full_direct_batch``):
 the database streams once per batch (K2 with all B queries' rows) and the
 fold is one K5 launch per round.  The server takes an EncodedDb or an
 ImplicitDb, whose slab K2 streams num_chunks times.
+
+process_query_fused is the serving path (the JAX one-dispatch
+``_run_single``): the same stages enqueued back to back with no clock
+between them, timed on the host until the response rows are on the host.
+final_ciphertext stops before the modulus switch.
 """
 from __future__ import annotations
 
@@ -78,6 +83,14 @@ class ServerTimings:
     modswitch_us: float = 0.0
 
     @property
+    def db_independent_us(self) -> float:
+        return self.expansion_us + self.composition_us + self.conversion_us
+
+    @property
+    def db_dependent_us(self) -> float:
+        return self.first_multiply_us + self.folding_us + self.packing_us
+
+    @property
     def total_us(self) -> float:
         return sum(dataclasses.astuple(self))
 
@@ -104,6 +117,23 @@ class StageClock:
             return [a.elapsed_time(b) * 1e3
                     for a, b in zip(self.marks, self.marks[1:])]
         return [(b - a) * 1e6 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def no_mark() -> None:
+    """The stage mark of an untimed run."""
+
+
+def serve_fused(server, query: Query):
+    """A server's process_query_fused: one warm run of
+    ``server._run_single``, then a second timed on the host clock from
+    its first stage until the response rows are on the host, every stage
+    enqueued back to back.  -> (the server's response, seconds)."""
+    for x in server._run_single(query):
+        x.cpu()
+    t0 = time.perf_counter()
+    rows = [x.cpu() for x in server._run_single(query)]
+    seconds = time.perf_counter() - t0
+    return server._response(*rows), seconds
 
 
 def db_tensor(db: EncodedDb | ImplicitDb) -> torch.Tensor:
@@ -213,11 +243,12 @@ class SpiralServer:
         """(B, dim0, n1, n0, 2, d) -> (B, num_per, n1, n2, 2, d) coeff: K2
         streams the database (or the slab, num_chunks times) once for the
         batch."""
-        p = self.params
+        n2 = self.params.n2
         res = multiply_query_by_db_batch(db_tensor(self.db),
                                          reorient_query(C_reg_b),
                                          self.num_chunks)
-        return ntt.inverse(finish_output_batch(res, p.num_per, p.n2))
+        # the columns' cts: num_per (F*num_per over a factored database)
+        return ntt.inverse(finish_output_batch(res, res.shape[-1] // n2, n2))
 
     def first_dim(self, C_reg):
         return self.first_dim_batch(C_reg[None])[0]
@@ -231,26 +262,54 @@ class SpiralServer:
         return fold_ciphertexts(cts_coeff, q_pos, q_neg, self.params,
                                 g_buf=self._fold_g)
 
+    @staticmethod
+    def encode_database(pts: np.ndarray, params: Params,
+                        device="cuda") -> EncodedDb:
+        return encode_db(pts, params, torch.device(device))
+
+    def _survivors(self, query: Query, mark=no_mark) -> torch.Tensor:
+        """The stages of one query up to the fold, `mark` called after
+        each: the folded ct, coefficient domain."""
+        first_b, gsw_b = self.query_scalars_batch([query])
+        mark()
+        C_reg = self.compose(first_b[0])
+        mark()
+        q_pos, q_neg = self.convert(gsw_b[0])
+        mark()
+        cts = self.first_dim(C_reg)
+        mark()
+        final = self.fold(cts, q_pos, q_neg)
+        mark()
+        return final
+
+    def _run_single(self, query: Query, mark=no_mark):
+        """Every stage of one query, enqueued: the response rows on the
+        device."""
+        rows = modswitch_device(self._survivors(query, mark), self.params)
+        mark()
+        return rows
+
+    _response = staticmethod(response_from_device_rows)
+
+    def final_ciphertext(self, query: Query) -> torch.Tensor:
+        """The folded ct before the modulus switch, (n1, n2, 2, d)
+        coefficient domain: the error-analysis hook (ref: --output-err,
+        src/spiral.cpp:1517-1535)."""
+        return self._survivors(query)
+
     def process_query(self, query: Query):
         """Answer one query of either form: (Response, ServerTimings).  A
         direct query's reconstruction (and any part's expansion) is timed
         as its expansion_us; the JAX server leaves that field at 0 for
         direct queries, the time falling into its composition."""
         clock = StageClock(self.device)
-        first_b, gsw_b = self.query_scalars_batch([query])
-        first_scalars, gsw_scalars = first_b[0], gsw_b[0]
-        clock.mark()
-        C_reg = self.compose(first_scalars)
-        clock.mark()
-        q_pos, q_neg = self.convert(gsw_scalars)
-        clock.mark()
-        cts = self.first_dim(C_reg)
-        clock.mark()
-        final = self.fold(cts, q_pos, q_neg)
-        clock.mark()
-        first, rest = modswitch_device(final, self.params)
-        clock.mark()
-        return response_from_device_rows(first, rest), _timings(clock)
+        rows = self._run_single(query, clock.mark)
+        return self._response(*rows), _timings(clock)
+
+    def process_query_fused(self, query: Query):
+        """The serving path: (Response, seconds), the seconds of a second
+        run (serve_fused) until the response rows are on the host."""
+        return serve_fused(self, query)
 
     def process_query_batch(self, queries: list[Query]):
         """Answer a batch of queries of one form: (list[Response], seconds),

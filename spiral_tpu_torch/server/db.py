@@ -114,16 +114,22 @@ def random_db(params: Params, rng: np.random.Generator) -> np.ndarray:
         dtype=np.int64)
 
 
-def encode_db(pts: np.ndarray, params: Params, device) -> EncodedDb:
+def encode_db(pts: np.ndarray, params: Params, device,
+              out: torch.Tensor | None = None) -> EncodedDb:
     """Center mod p_db, lift, NTT on `device`, and write the K2 layout,
     one block of first-dimension rows at a time (a block uploads as int16
-    when p_db allows)."""
+    when p_db allows).  `out`, a (2, d, K, num_per*n2) view on `device`,
+    takes the encoding in place of a new tensor (a factored database's
+    column block)."""
     p_db, d = params.p_db, params.poly_len
     num_per, dim0, n0, n2 = params.num_per, params.dim0, params.n0, params.n2
     small = np.int16 if p_db <= (1 << 15) else np.int32
     perm = torch.from_numpy(bitrev_perm(num_per)).to(device)
-    out = torch.empty((2, d, dim0 * n0, num_per * n2), dtype=torch.int32,
-                      device=device)
+    shape = (2, d, dim0 * n0, num_per * n2)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=device)
+    elif tuple(out.shape) != shape:
+        raise ValueError(f"encode_db out {tuple(out.shape)}, want {shape}")
     jb = max(1, min(dim0, BLOCK_POLYS // (num_per * n0 * n2)))
     for j0 in range(0, dim0, jb):
         j1 = min(dim0, j0 + jb)

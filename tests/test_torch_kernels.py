@@ -333,3 +333,23 @@ def test_fold_g_workspace(cuda, monkeypatch):
     assert kernels.LAUNCHES["fold_ntt"] == 1 and kernels.LAUNCHES["fold"] == 7
     monkeypatch.setattr(fold, "MXU_MIN_COLS", {})
     _same(got, fold.fold_rounds(cts, qp, qn, p), "fold", 15)
+
+
+def test_factored_fold_outgrows_workspace(cuda, monkeypatch):
+    """A factored server's K8b rounds need F times the G of the
+    single-database workspace its server makes: those rounds allocate
+    their own (K8b-1 still launches) and the F survivors equal K3's."""
+    from spiral_tpu_torch.factored import FactoredSpiralServer
+    from spiral_tpu_torch.params import Params
+    p = Params(nu_1=2, nu_2=8, p_db=256, t_gsw=11, t_conv=4, t_exp=8,
+               t_exp_right=8)
+    F = 3
+    server = FactoredSpiralServer.__new__(FactoredSpiralServer)
+    server.params, server._fold_g = p, fold.mxu_workspace(p, "cuda")
+    assert server._fold_g.numel() < fold.g_words(11, F * 128, 6, p.poly_len)
+    cts = _residues(cuda, (F * 256, 3, 2, p.poly_len))
+    qp, qn = (_residues(cuda, (8, 3, 33, p.poly_len)) for _ in range(2))
+    got = server.fold(cts, qp, qn)
+    assert kernels.LAUNCHES["fold_ntt"] == 2 and got.shape[0] == F
+    monkeypatch.setattr(fold, "MXU_MIN_COLS", {})
+    _same(got, server.fold(cts, qp, qn), "fold", 6 + 8)
