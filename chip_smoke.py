@@ -70,7 +70,22 @@ Phases, each printing its own lines and its wall time:
      chunks of each decoded, one K2 launch per run; then K2 at the
      factored shape (m 3,328) on the real database and K3's round 1
      (m_out 832) on the real first-dimension output against their plain
-     versions.
+     versions;
+  9. the measurement layer, after every earlier phase's database is
+     freed: at spiral_20_256 profiling.device_stage_times (each prefix of
+     a query captured and replayed as a CUDA graph; a failed capture, or
+     replayed rows other than the eager rows, fails the run) beside the
+     process_query CUDA-event split, the host's share of each stage,
+     process_query_fused's seconds and the device's busy share of served
+     queries from a torch.profiler trace, the response after profiling
+     equal to the one before and the stage sum equal to fused_total_us;
+     then the port's bench (python -m spiral_tpu_torch.bench) at
+     spiral_20_256 and at spiral_24_256 --implicit, harness ubench at
+     spiral_20_256 and harness packingcomp at the four full presets, in
+     this process, each printing its JSON line and launching every
+     kernel of its path (K1-K4, K8a and K5 in the bench's batch of 8;
+     chunked K2 and K8b implicit; K6 and K7 in packingcomp); a wrong
+     decode fails the run.
 Phases 4, 5 and 7 also send one query of each full preset over the wire
 (serialize.py: query bytes -> process_query_fused -> response bytes ->
 decode, equal to its process_query rows), count the host syncs torch
@@ -185,6 +200,23 @@ FACTORED_PRESET, FACTOR = "spiral_20_256", 13
 # its 2 GiB encoded database through save_db / load_db
 CHECKPOINT_PRESET = "spiral_20_256"
 BATCH = 8
+# phase 9: the stage split's preset and runs, the tolerance of its stage
+# sum against fused_total_us (each stage is rounded to a microsecond and
+# clamped at 0, as in the JAX profiler), and the measurement runs: (tag,
+# module, argv, the kernels the run must launch)
+MEASURE_PRESET = "spiral_20_256"
+MEASURE_RUNS = 3
+STAGE_SUM_TOLERANCE = 0.01
+MEASURE_RUNS_ARGV = (
+    ("bench spiral_20_256", "bench", ["--preset", "spiral_20_256"],
+     SPIRAL_PATH + ("fold_batch",)),
+    ("bench spiral_24_256 --implicit", "bench",
+     ["--preset", "spiral_24_256", "--implicit"], IMPLICIT_PATH),
+    ("harness ubench spiral_20_256", "harness",
+     ["ubench", "--preset", "spiral_20_256"], SPIRAL_PATH),
+    ("harness packingcomp", "harness", ["packingcomp"],
+     SPIRAL_PATH + ("fold_pack", "pack")),
+)
 # a kernel whose mean over back-to-back launches is below this (the least
 # of TIMINGS event timings) is timed again as the replay of a CUDA graph of
 # those launches
@@ -1436,6 +1468,118 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
              **forced}, {f"{name} implicit": single, **forced_q})
 
 
+def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
+                    ) -> None:
+    """Phase 9's stage split at `name`: profiling.device_stage_times (the
+    prefixes of one query as CUDA graphs; it raises if a capture fails or
+    the full prefix's replayed rows differ from the eager rows) beside
+    the CUDA-event split of process_query (least of MEASURE_RUNS runs per
+    stage) and process_query_fused's seconds; then a torch.profiler trace
+    of MEASURE_RUNS served queries, whose kernel time over their host
+    seconds is the device's busy share.  The response after profiling
+    must equal the one before, and the stage sum fused_total_us to within
+    STAGE_SUM_TOLERANCE."""
+    from spiral_tpu_torch import profiling
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.pir import SpiralClient, SpiralServer
+    from spiral_tpu_torch.server.db import encode_db, random_db
+
+    params = preset(name)
+    rng = np.random.default_rng(seed)
+    pts = random_db(params, rng)
+    client = SpiralClient(params, seed=seed, device="cuda")
+    server = SpiralServer(params, encode_db(pts, params, "cuda"),
+                          client.setup())
+    del pts
+    idx = int(rng.integers(0, params.total_n))
+    q = client.query(idx)
+    before, _ = server.process_query(q)
+    graph = profiling.device_stage_times(server, q)
+    after, _ = server.process_query(q)
+    events = [server.process_query(q)[1] for _ in range(MEASURE_RUNS)]
+    fused = min(server.process_query_fused(q)[1]
+                for _ in range(MEASURE_RUNS))
+    same = same_rows(before, after)
+    print(f"{name} stage split idx={idx}: the graph-replayed rows equal the "
+          f"eager rows (device_stage_times checks them); the response after "
+          f"profiling equals the one before={same} [{card}]", flush=True)
+    if not same:
+        raise SystemExit(f"{name}: profiling changed the response")
+    total_event = min(t.total_us for t in events)
+    print(f"{name} stage split, us: stage, cuda graph prefixes "
+          f"(iters 8, best of 3), process_query cuda events (least of "
+          f"{MEASURE_RUNS}), host share of the event time [{card}]",
+          flush=True)
+    for stage in profiling.STAGES:
+        g = graph[f"{stage}_us"]
+        e = min(getattr(t, f"{stage}_us") for t in events)
+        print(f"  {stage}: {g} | {e:.1f} | {1 - g / e:.3f}", flush=True)
+    stage_sum = sum(graph[f"{s}_us"] for s in profiling.STAGES)
+    total = graph["fused_total_us"]
+    print(f"  total: stage sum {stage_sum}, fused_total_us {total} | "
+          f"{total_event:.1f} | {1 - total / total_event:.3f}; "
+          f"process_query_fused {fused * 1e3:.3f} ms (host clock until the "
+          f"rows are on the host, least of {MEASURE_RUNS})", flush=True)
+    if abs(stage_sum - total) > max(3, STAGE_SUM_TOLERANCE * total):
+        raise SystemExit(f"{name}: the stage sum {stage_sum} us is not "
+                         f"fused_total_us {total}")
+    # the device's busy share of the served path from a profiler trace:
+    # kernel time (torch.profiler, CUPTI) over host seconds of
+    # MEASURE_RUNS served queries, each fetched to the host
+    [x.cpu() for x in server._run_single(q)]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(MEASURE_RUNS):
+            [x.cpu() for x in server._run_single(q)]
+        wall = (time.perf_counter() - t0) / MEASURE_RUNS
+    kernel = sum(e.self_device_time_total
+                 for e in prof.key_averages()) / MEASURE_RUNS
+    busy = (f"busy {kernel / (wall * 1e6):.3f}, idle "
+            f"{1 - kernel / (wall * 1e6):.3f}" if kernel else
+            "not measured (the trace holds no device time)")
+    print(f"  profiler trace of {MEASURE_RUNS} served queries: kernel time "
+          f"{kernel:.1f} us a query (graph prefixes {total}) in "
+          f"{wall * 1e6:.1f} us of host time: device {busy} [{card}]",
+          flush=True)
+
+
+def run_measure(seed: int, card: str) -> dict:
+    """Phase 9, the measurement layer: the stage split (run_stage_split),
+    then the port's bench, harness ubench and harness packingcomp in this
+    process, each printing its JSON line (MEASURE_RUNS_ARGV), its
+    launches counted from 0 and required for every kernel of its path.
+    A wrong decode, a failed capture or a kernel of a path never launched
+    fails the run.  Returns {path: launches}."""
+    from spiral_tpu_torch import bench, harness, kernels
+
+    run_stage_split(seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {}
+    with tempfile.TemporaryDirectory() as results:
+        for tag, module, argv, path in MEASURE_RUNS_ARGV:
+            main = {"bench": bench.main, "harness": harness.main}[module]
+            if module == "harness":
+                argv = argv + ["--results-dir", results]
+            t0 = time.perf_counter()
+            kernels.reset_launches()
+            rc = main(argv)
+            launches = dict(kernels.LAUNCHES)
+            print(f"measure {tag}: rc {rc}, {time.perf_counter() - t0:.2f} "
+                  f"s, launches {launches} [{card}]", flush=True)
+            if rc != 0:
+                raise SystemExit(f"measure {tag}: exit code {rc}")
+            if not all(launches[k] for k in path):
+                raise SystemExit(f"measure {tag}: a kernel of {path} was "
+                                 f"never launched")
+            paths[f"measure {tag}"] = launches
+            gc.collect()
+            torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1536,6 +1680,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = phase("8 factored", t0)
+    print(f"before phase 9: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated on the card", flush=True)
+    paths.update(run_measure(args.seed, card))
+    t0 = phase("9 measure", t0)
 
     out = []
     for kernel, (src, repl) in KERNEL_META.items():

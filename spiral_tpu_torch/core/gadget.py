@@ -4,11 +4,13 @@ residue pair; the fold and expansion kernels (K3, K4) compute the same
 digits in registers."""
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..params import Q, get_bits_per
 from ..arith.crt import const_residues, lift_pair
-from ..arith.mod import p_col
+from ..arith.mod import MODS, p_col
 
 
 def build_gadget(rows: int, cols: int, d: int, device) -> torch.Tensor:
@@ -72,14 +74,20 @@ def signed_digits(x, num_elems: int):
     return out
 
 
+@lru_cache(maxsize=None)
+def _sign_corr(z: int, device) -> torch.Tensor:
+    """(Q - z) mod each modulus, (2, 1) int64 on `device`: made once per
+    (z, device), as p_col is, so that no call copies it to the card."""
+    return torch.tensor([[(Q - z) % m] for m in MODS], dtype=torch.int64,
+                        device=device)
+
+
 def gadget_invert_signed_raw(x, num_elems: int, rdim: int):
     """x (..., rdim, m, 2, d) -> (..., num_elems*rdim, m, 2, d), row
     j + k*rdim holding digit k of x[j] as residues."""
     assert x.shape[-4] == rdim
-    z = 1 << get_bits_per(num_elems)
     p = p_col(x.device)
-    corr = torch.tensor([[(Q - z) % m] for m in p.flatten().tolist()],
-                        dtype=torch.int64, device=x.device)
+    corr = _sign_corr(1 << get_bits_per(num_elems), x.device)
     rows = []
     for piece, do_sign in signed_digits(x, num_elems):
         r = torch.stack([piece, piece], dim=-2) % p

@@ -2,8 +2,9 @@
 
 Client noise comes from a torch.Generator on the CPU, so a seed gives the
 same keys whatever device the client computes on; it does not reproduce
-jax.random's bits.  ``uniform_residues_jax`` is the one sampler that must
-match JAX bit for bit: the server rebuilds query `a` halves with it.
+jax.random's bits.  ``uniform_residues_words`` of ``uniform_key_words`` is
+the one sampler that must match JAX's uniform_residues bit for bit: the
+server rebuilds query `a` halves with it.
 """
 from __future__ import annotations
 
@@ -46,11 +47,21 @@ def uniform_residues(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.stack([x, y], dim=-2).to(torch.int32)
 
 
-def uniform_residues_jax(keys: list[tuple[int, int]], shape,
-                         device) -> torch.Tensor:
-    """spiral_tpu.core.sampling.uniform_residues(jax key, shape) for each
-    key, bit for bit: (..., d) -> (len(keys), ..., 2, d) int32."""
+def uniform_key_words(keys: list[tuple[int, int]], device) -> torch.Tensor:
+    """The words of the four random_bits draws uniform_residues_words makes
+    for each key (the residue mod P_I's high and low, then B_I's), as
+    threefry.key_words gives them: (4, 2, len(keys), 1) on `device`."""
     halves = [threefry.split(k) for k in keys]
-    x = threefry.randint_u32([h[0] for h in halves], shape, P_I, device)
-    y = threefry.randint_u32([h[1] for h in halves], shape, B_I, device)
+    return threefry.key_words(
+        threefry.randint_keys([h[0] for h in halves]) +
+        threefry.randint_keys([h[1] for h in halves]), device)
+
+
+def uniform_residues_words(words: torch.Tensor, shape) -> torch.Tensor:
+    """spiral_tpu.core.sampling.uniform_residues(jax key, shape) for each
+    of B keys, from their uniform_key_words, bit for bit: (..., d) -> (B,
+    ..., 2, d) int32."""
+    x, y = (threefry.randint_u32(threefry.random_bits(words[i], shape),
+                                 threefry.random_bits(words[i + 1], shape),
+                                 maxval) for i, maxval in ((0, P_I), (2, B_I)))
     return torch.stack([x, y], dim=-2).to(torch.int32)

@@ -4,9 +4,10 @@ with jax_threefry_partitionable=True (jax/_src/prng.py threefry_seed,
 _threefry_split_foldlike, _threefry_random_bits_partitionable;
 jax/_src/random.py _randint).
 
-Words are uint32 values held in int64 tensors; keys are python int pairs.
-The samplers take a list of keys and draw each key's stream in one row, so
-a batch of queries replays in one pass.
+Words are uint32 values held in int64 tensors; keys are python int pairs,
+split on the host and copied to the device in one tensor (key_words).
+random_bits draws each key of a set in one row, so a batch of queries
+replays in one pass.
 """
 from __future__ import annotations
 
@@ -48,28 +49,40 @@ def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
     return [threefry2x32(key, 0, i) for i in range(num)]
 
 
-def random_bits(keys: list[tuple[int, int]], shape, device) -> torch.Tensor:
-    """32-bit random words over `shape` for each key: (len(keys), *shape)
-    int64, one key's stream per row."""
+def key_words(key_sets: list[list[tuple[int, int]]], device) -> torch.Tensor:
+    """S sets of B keys as the (S, 2, B, 1) int64 words random_bits takes,
+    on `device`: one copy, sent non_blocking so that it does not sync the
+    host.  Staged before a CUDA graph capture, they are the replay's
+    input (the capture copies nothing from the host)."""
+    w = torch.tensor([[[k[j] for k in keys] for j in (0, 1)]
+                      for keys in key_sets], dtype=torch.int64)
+    return w.to(device, non_blocking=True)[..., None]
+
+
+def random_bits(words: torch.Tensor, shape) -> torch.Tensor:
+    """32-bit random words over `shape` for each key of one set of
+    key_words' words (2, B, 1): (B, *shape) int64, one key's stream per
+    row."""
     n = math.prod(shape)
     assert n < (1 << 32)
-    # non_blocking: the copy of the keys to the card does not sync the host
-    k0, k1 = (torch.tensor([k[j] for k in keys], dtype=torch.int64)
-              .to(device, non_blocking=True)[:, None] for j in (0, 1))
-    lo = torch.arange(n, dtype=torch.int64, device=device)
-    b0, b1 = threefry2x32((k0, k1), torch.zeros_like(lo), lo)
-    return (b0 ^ b1).reshape((len(keys),) + tuple(shape))
+    lo = torch.arange(n, dtype=torch.int64, device=words.device)
+    b0, b1 = threefry2x32((words[0], words[1]), torch.zeros_like(lo), lo)
+    return (b0 ^ b1).reshape((words.shape[1],) + tuple(shape))
 
 
-def randint_u32(keys: list[tuple[int, int]], shape, maxval: int, device):
-    """jax.random.randint(key, shape, 0, maxval, dtype=uint32) for each
-    key, (len(keys), *shape), with its uint32 wrap-around in the range
-    reduction."""
+def randint_keys(keys: list[tuple[int, int]]) -> list[list[tuple[int, int]]]:
+    """The two key sets jax.random.randint draws from for each key: its
+    high and its low words' keys."""
+    halves = [split(k) for k in keys]
+    return [[h[0] for h in halves], [h[1] for h in halves]]
+
+
+def randint_u32(hi: torch.Tensor, lo: torch.Tensor, maxval: int):
+    """jax.random.randint(key, shape, 0, maxval, dtype=uint32) from the
+    random_bits of the key's two randint_keys sets, with its uint32
+    wrap-around in the range reduction."""
     span = maxval
     assert 0 < span <= M32
-    halves = [split(k) for k in keys]
-    hi = random_bits([h[0] for h in halves], shape, device)
-    lo = random_bits([h[1] for h in halves], shape, device)
     mult = (1 << 16) % span
     mult = (mult * mult & M32) % span
     off = ((hi % span) * mult & M32) + lo % span

@@ -8,7 +8,7 @@ import dataclasses
 
 import torch
 
-from ..params import Params
+from ..params import LOG_Q, Params
 from ..arith import ntt
 from ..core.gadget import build_gadget
 from ..core.poly import automorph_raw, matmul_raw, scalar_mul_raw
@@ -21,7 +21,13 @@ class PublicParams:
     W_exp_right: list | None  # tensors (2, m_exp_right, 2, d), NTT
     W_conv: torch.Tensor  # (n1, n0*m_conv, 2, d), NTT
     V: torch.Tensor       # (n1, 2*m_conv, 2, d), NTT
-    size_bytes: int = 0   # the wire size where they came as bytes
+    size_bytes: int = 0   # the JAX accounting; the wire size from bytes
+
+
+def matrix_bytes(m: torch.Tensor) -> int:
+    """A key matrix (rows, cols, 2, d) counted as rows*cols polys of d
+    56-bit coefficients (publicparams.py _pub_size)."""
+    return m.shape[0] * m.shape[1] * m.shape[-1] * LOG_Q // 8
 
 
 def expansion_keyswitch_matrices(enc: Encryptor, rounds: int, m_exp: int,
@@ -52,7 +58,9 @@ def expansion_rounds(params: Params) -> tuple[int, int]:
 def generate_public_params(params: Params, enc: Encryptor) -> PublicParams:
     """V is made even where the rest part is uploaded directly: the server
     converts those cts with it, as the JAX server does (pir.py:190-196),
-    though the JAX size accounting leaves V out there."""
+    though the JAX size accounting leaves V out there.  size_bytes is that
+    accounting (publicparams.py:108-118): W_conv, the W_exp_* where a part
+    is expanded, and V unless the rest part is uploaded directly."""
     d, dev = params.poly_len, enc.device
     g, right_rounds = expansion_rounds(params)
     W_left = W_right = None
@@ -67,5 +75,9 @@ def generate_public_params(params: Params, enc: Encryptor) -> PublicParams:
     gv = ntt.forward(build_gadget(1, params.m_conv, d, dev))
     together = torch.cat([scalar_mul_raw(sr_ntt, gv), gv], dim=1)
     V = enc.encrypt_matrix(matmul_raw(ntt.forward(enc.keys.Sp), together))
+    size = matrix_bytes(W_conv) + sum(map(matrix_bytes,
+                                          (W_left or []) + (W_right or [])))
+    if not params.direct_upload_rest:
+        size += matrix_bytes(V)
     return PublicParams(W_exp_left=W_left, W_exp_right=W_right,
-                        W_conv=W_conv, V=V)
+                        W_conv=W_conv, V=V, size_bytes=size)

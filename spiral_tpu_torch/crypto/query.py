@@ -20,7 +20,7 @@ from ..params import Params, Q, get_bits_per
 from ..arith import ntt
 from ..arith.crt import residues_from_values
 from ..core.poly import add_raw, neg_raw, scalar_mul_raw
-from ..core.sampling import uniform_residues_jax
+from ..core.sampling import uniform_key_words, uniform_residues_words
 from ..core.threefry import key_from_seed
 from .encrypt import Encryptor
 
@@ -37,12 +37,22 @@ class Query:
     size_bytes: int = 0
 
 
+def seed_words(seeds, device) -> torch.Tensor:
+    """The key words the seeds' a halves are drawn from (jax.random.key(seed)
+    -> sampling.uniform_key_words), on `device`: the one copy to the card
+    that rebuilding a batch's cts makes.  Staged before a CUDA graph
+    capture, they stand for the seeds in derive_a_ntt_batch and
+    reconstruct_cts."""
+    return uniform_key_words([key_from_seed(int(s)) for s in seeds], device)
+
+
 def derive_a_ntt_batch(seeds, n_cts: int, d: int, device) -> torch.Tensor:
     """The PRF-derived uniform a halves of each seed's query, NTT domain
     (B, n_cts, 1, 1, 2, d): jax.random.key(seed) -> uniform_residues ->
-    NTT, bit for bit, all seeds in one pass."""
-    keys = [key_from_seed(int(s)) for s in seeds]
-    return ntt.forward(uniform_residues_jax(keys, (n_cts, 1, 1, d), device))
+    NTT, bit for bit, all seeds in one pass.  `seeds`: a list of B seeds,
+    or their seed_words."""
+    words = seeds if torch.is_tensor(seeds) else seed_words(seeds, device)
+    return ntt.forward(uniform_residues_words(words, (n_cts, 1, 1, d)))
 
 
 def derive_a_ntt(seed: int, n_cts: int, d: int, device) -> torch.Tensor:
@@ -52,8 +62,8 @@ def derive_a_ntt(seed: int, n_cts: int, d: int, device) -> torch.Tensor:
 
 def reconstruct_cts(seed, b_ntt: torch.Tensor) -> torch.Tensor:
     """(-a, b) scalar cts from the seed and b rows: (n, 1, 1, 2, d) ->
-    (n, 2, 1, 2, d).  For a list of B seeds, one query each:
-    (B, n, 1, 1, 2, d) -> (B, n, 2, 1, 2, d)."""
+    (n, 2, 1, 2, d).  For a list of B seeds (or their seed_words), one
+    query each: (B, n, 1, 1, 2, d) -> (B, n, 2, 1, 2, d)."""
     single = isinstance(seed, (int, np.integer))
     b = b_ntt[None] if single else b_ntt
     a = derive_a_ntt_batch([seed] if single else seed, b.shape[1],

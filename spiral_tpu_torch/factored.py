@@ -13,17 +13,20 @@ K8b) launch per round for all sub-databases: a round pairs cts (2o,
 2o+1) and num_per is even, so a pair never crosses a sub-database, and
 nu_2 rounds leave each sub-database's survivor.  The modulus switch runs
 once over the F survivors.  Expansion, composition and conversion are a
-SpiralServer's, run once per query.
+SpiralServer's, run once per query; process_query_fused runs them before
+its clock starts and times first dim + fold + modswitch, as the JAX
+server's does.
 """
 from __future__ import annotations
 
+import time
 from typing import Iterable
 
 import numpy as np
 import torch
 
 from .params import Params
-from .crypto.decode import responses_from_device_rows
+from .crypto.decode import modswitch_device, responses_from_device_rows
 from .pir import SpiralClient, SpiralServer
 from .server.db import EncodedDb, encode_db
 from .server.fold import fold_rounds
@@ -80,6 +83,25 @@ class FactoredSpiralServer(SpiralServer):
                            num_rounds=self.params.nu_2, g_buf=self._fold_g)
 
     _response = staticmethod(responses_from_device_rows)
+
+    def process_query_fused(self, query):
+        """The serving path (spiral_tpu/factored.py:132-147): expansion,
+        composition and conversion first, untimed; then first dim, fold and
+        modulus switch once warm and once timed on the host clock until the
+        rows are on the host.  -> (list of F Responses, seconds)."""
+        first_b, gsw_b = self.query_scalars_batch([query])
+        C_reg = self.compose(first_b[0])
+        q_pos, q_neg = self.convert(gsw_b[0])
+
+        def tail():
+            return [x.cpu() for x in modswitch_device(
+                self.fold(self.first_dim(C_reg), q_pos, q_neg), self.params)]
+
+        tail()
+        t0 = time.perf_counter()
+        rows = tail()
+        seconds = time.perf_counter() - t0
+        return self._response(*rows), seconds
 
     def process_query_batch(self, queries):
         raise ValueError("a factored server answers one query at a time")

@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from .params import Params, get_bits_per
+from .params import LOG_Q, Params, get_bits_per
 from .arith import ntt
 from .arith.crt import const_residues, residues_from_values
 from .core.gadget import build_gadget, gadget_invert_raw
@@ -40,7 +40,8 @@ from .crypto.decode import (Response, decode_response, modswitch_device,
                             responses_from_device_rows)
 from .crypto.encrypt import Encryptor
 from .crypto.keys import SecretKeys, keygen
-from .crypto.publicparams import expansion_keyswitch_matrices
+from .crypto.publicparams import (expansion_keyswitch_matrices,
+                                  matrix_bytes)
 from .crypto.query import (Query, encrypt_b_batch, gsw_digit_values,
                            new_seed, packed_query, reconstruct_cts,
                            sigmas_ntt)
@@ -71,7 +72,7 @@ class PackPublicParams:
     W_exp_left: list | None    # g tensors (2, m_exp, 2, d), NTT
     W_exp_right: list | None   # stop+1 tensors (2, m_exp_right, 2, d), NTT
     V: torch.Tensor | None     # (2, 2*m_conv, 2, d) conversion key, NTT
-    size_bytes: int = 0        # the wire size where they came as bytes
+    size_bytes: int = 0        # the JAX accounting; the wire size from bytes
 
 
 def generate_pack_public_params(params: Params, enc: Encryptor
@@ -80,7 +81,10 @@ def generate_pack_public_params(params: Params, enc: Encryptor
     expansion keys over g and stop+1 rounds, and V, whose column 2k is
     Enc_sr(sr^2 z^k) and column 2k+1 Enc_sr(sr z^k) (ref:
     testing.cpp:917-943).  With direct_upload_first only v_W is made
-    (pack.py:86-105, :119-138)."""
+    (pack.py:86-105, :119-138).  size_bytes is the JAX PackClient.setup's
+    accounting (pack.py:119-137): out_n*(out_n+1)*m_conv polys of v_W, and
+    where the query is expanded the W_exp_* and 2*2*m_conv polys of V, d
+    56-bit coefficients each."""
     d, dev = params.poly_len, enc.device
     out_n, m_conv = params.out_n, params.m_conv
     sr_ntt = ntt.forward(enc.keys.sr)[0, 0]
@@ -90,9 +94,10 @@ def generate_pack_public_params(params: Params, enc: Encryptor
         AG = torch.zeros((out_n, m_conv, 2, d), dtype=torch.int32, device=dev)
         AG[r] = s0g[0]
         v_W.append(enc.encrypt_matrix(AG))
+    size = out_n * (out_n + 1) * m_conv * d * LOG_Q // 8
     if params.direct_upload_first:
         return PackPublicParams(v_W=torch.stack(v_W), W_exp_left=None,
-                                W_exp_right=None, V=None)
+                                W_exp_right=None, V=None, size_bytes=size)
     g, stop = pack_g_stop(params)
     W_left = expansion_keyswitch_matrices(enc, g, params.m_exp, d)
     W_right = expansion_keyswitch_matrices(enc, stop + 1,
@@ -106,8 +111,10 @@ def generate_pack_public_params(params: Params, enc: Encryptor
         sigmas.append(scalar_mul_raw(z, bases[i % 2]))
     # one simple-Regev ct per column: independent a and e for each
     V = enc.encrypt_simple_regev_matrix(torch.stack(sigmas)[None])
+    size += sum(map(matrix_bytes, W_left + W_right)) + \
+        2 * 2 * m_conv * d * LOG_Q // 8
     return PackPublicParams(v_W=torch.stack(v_W), W_exp_left=W_left,
-                            W_exp_right=W_right, V=V)
+                            W_exp_right=W_right, V=V, size_bytes=size)
 
 
 class PackClient:

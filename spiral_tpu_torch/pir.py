@@ -176,8 +176,9 @@ class SpiralServer:
     # compose and convert take and give a leading query axis, as the JAX
     # batch's jax.vmap does --
     def expand_batch(self, seeds: list[int], packed_bs: torch.Tensor):
-        """seeds and b rows (B, 1, 1, 1, 2, d) -> first-dimension scalars
-        (B, dim0, 2, 1, 2, d) and GSW sources (B, nu_2*t_gsw, ...)."""
+        """seeds (or their query.seed_words) and b rows (B, 1, 1, 1, 2, d)
+        -> first-dimension scalars (B, dim0, 2, 1, 2, d) and GSW sources
+        (B, nu_2*t_gsw, ...)."""
         p = self.params
         packed_ct = reconstruct_cts(seeds, packed_bs.to(self.device))[:, 0]
         n_gsw = p.t_gsw * p.further_dims

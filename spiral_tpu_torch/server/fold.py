@@ -45,6 +45,8 @@ scheme in int64; ``fold_contract_limb_sums`` also takes the kernel's
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..params import Params
@@ -200,6 +202,14 @@ def _limbs(x: torch.Tensor, bits: int) -> list:
     return [(x >> (bits * j)) & ((1 << bits) - 1) for j in range(N_LIMBS)]
 
 
+@lru_cache(maxsize=None)
+def _limb_scales(bits: int, device) -> torch.Tensor:
+    """2^{bits j} mod each modulus, (N_LIMBS, 2) int64 on `device`: made
+    once per (bits, device), so that no call copies it to the card."""
+    return torch.tensor([[(1 << (bits * j)) % m for m in MODS]
+                         for j in range(N_LIMBS)], device=device)
+
+
 def fold_contract_limb_sums(G: torch.Tensor, q_neg: torch.Tensor,
                             q_pos: torch.Tensor, t_gsw: int,
                             bits: int = LIMB_BITS) -> torch.Tensor:
@@ -218,8 +228,7 @@ def fold_contract_limb_sums(G: torch.Tensor, q_neg: torch.Tensor,
     p = p_col(G.device)                                       # (li, 1)
     q = torch.stack([q_neg, q_pos]).long().reshape(2, n1, t_gsw, n1, 2, d)
     # (j, s, r, k, jn1, li, d): (2^{bits j} q) mod p, then its i-limbs
-    pw = torch.tensor([[(1 << (bits * j)) % m for m in MODS]
-                       for j in range(N_LIMBS)], device=G.device)
+    pw = _limb_scales(bits, G.device)
     qj = q[None] * pw[:, None, None, None, None, :, None] % p
     qi = torch.stack(_limbs(qj, bits))            # (i, j, s, r, k, jn1, li, d)
     G7 = G.reshape(2, 2, t_gsw, m_out, n1, n2, d)

@@ -5,6 +5,7 @@ the JAX SpiralServer's final_ciphertext.  The JAX servers run once for
 the module.  All arithmetic is exact: the tolerance is 0."""
 import collections
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -128,6 +129,45 @@ def test_factored_rows_match_jax(jax_run, F, path):
                                   run[F]["pts"][IDX].astype(object))
     with pytest.raises(ValueError):
         server.process_query_batch([_tquery(run["q"])])
+
+
+def test_fused_window_excludes_query_stages(monkeypatch):
+    """process_query_fused runs expansion, composition and conversion
+    before its clock starts and times first dim, fold and modulus switch
+    until the rows are on the host, as the JAX server's does
+    (spiral_tpu/factored.py:132-147); its rows equal process_query's.  A
+    wrapper on each stage and on the clock records their order."""
+    tp = tparams.preset("tiny")
+    client = pir.SpiralClient(tp, seed=4, device="cpu")
+    pts = _pts(tp, 3)
+    server = factored.FactoredSpiralServer(
+        tp, factored.encode_factored_db(pts, tp, "cpu"), client.setup())
+    q = client.query(IDX)
+    want, _ = server.process_query(q)
+    log = []
+
+    def recorded(tag, fn):
+        def run(*args, **kwargs):
+            log.append(tag)
+            return fn(*args, **kwargs)
+        return run
+
+    for name in ("query_scalars_batch", "compose", "convert", "first_dim",
+                 "fold"):
+        monkeypatch.setattr(server, name, recorded(name, getattr(server,
+                                                                 name)))
+    monkeypatch.setattr(time, "perf_counter",
+                        recorded("clock", time.perf_counter))
+    got, seconds = server.process_query_fused(q)
+    monkeypatch.undo()
+    assert log.count("clock") == 2, log
+    start = log.index("clock")
+    window = log[start + 1:log.index("clock", start + 1)]
+    assert window == ["first_dim", "fold"], log
+    assert seconds > 0
+    _same(got, want)
+    np.testing.assert_array_equal(factored.decode_factored(client, got),
+                                  pts[IDX].astype(object))
 
 
 @pytest.mark.parametrize("F", FACTORS)

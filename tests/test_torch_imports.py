@@ -30,4 +30,5 @@ def test_port_imports_without_jax():
     names = res.stdout.split()
     assert len(names) >= 25
     assert {f"spiral_tpu_torch.{m}" for m in
-            ("native", "serialize", "factored")} <= set(names)
+            ("native", "serialize", "factored", "profiling", "bench",
+             "harness")} <= set(names)
