@@ -85,7 +85,15 @@ Phases, each printing its own lines and its wall time:
      this process, each printing its JSON line and launching every
      kernel of its path (K1-K4, K8a and K5 in the bench's batch of 8;
      chunked K2 and K8b implicit; K6 and K7 in packingcomp); a wrong
-     decode fails the run.
+     decode fails the run;
+ 10. parameter selection (paramgen/, select_params.py): select_params'
+     main at (20, 256) on the card, Spiral and then --pack, each served
+     twice and decoded ("is_corr" must be true) over the parameters the
+     H100 LUT ranks first; the --dry-run selection at (14, 100000) and
+     whether it is measured; build_lut measuring spiral_20_256 into a
+     temporary file (its entry correct, with the port's tag and this
+     card; the committed LUT untouched); harness limits and application
+     (selection cells), each JSON line printed.
 Phases 4, 5 and 7 also send one query of each full preset over the wire
 (serialize.py: query bytes -> process_query_fused -> response bytes ->
 decode, equal to its process_query rows), count the host syncs torch
@@ -100,7 +108,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -217,6 +227,17 @@ MEASURE_RUNS_ARGV = (
     ("harness packingcomp", "harness", ["packingcomp"],
      SPIRAL_PATH + ("fold_pack", "pack")),
 )
+# phase 10: select_params' runs on the card (tag, argv, the kernels the run
+# must launch), the dry-run case, build_lut's preset and the selection
+# figures
+PARAMGEN_RUNS = (
+    ("select_params 20 256", ["20", "256", "--trials", "2"], SPIRAL_PATH),
+    ("select_params 20 256 --pack", ["20", "256", "--pack", "--trials", "2"],
+     PACK_PATH),
+)
+PARAMGEN_DRY = ["14", "100000", "--dry-run"]
+LUT_PRESET = "spiral_20_256"
+PARAMGEN_FIGURES = ("limits", "application")
 # a kernel whose mean over back-to-back launches is below this (the least
 # of TIMINGS event timings) is timed again as the replay of a CUDA graph of
 # those launches
@@ -1580,6 +1601,77 @@ def run_measure(seed: int, card: str) -> dict:
     return paths
 
 
+def run_main(tag: str, main, argv: list, card: str,
+             path: tuple = ()) -> tuple[str, dict]:
+    """One CLI's main(argv) in this process, its launches counted from 0:
+    -> (the last line it printed, the launches).  A nonzero exit code, or
+    a kernel of `path` never launched, fails the run."""
+    from spiral_tpu_torch import kernels
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    launches = dict(kernels.LAUNCHES)
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"paramgen {tag}: rc {rc}, {time.perf_counter() - t0:.2f} s, "
+          f"launches {launches} [{card}]\n  {line}", flush=True)
+    if rc != 0:
+        raise SystemExit(f"paramgen {tag}: exit code {rc}")
+    if not all(launches[k] for k in path):
+        raise SystemExit(f"paramgen {tag}: a kernel of {path} was never "
+                         f"launched")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def run_paramgen(card: str) -> dict:
+    """Phase 10, parameter selection: select_params' runs on the card
+    (PARAMGEN_RUNS, each decoded), the dry-run selection, build_lut at
+    LUT_PRESET into a temporary file and the selection figures.  Returns
+    {path: launches} of the runs that serve queries."""
+    from spiral_tpu_torch import harness, select_params
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.paramgen import build_lut, search
+
+    paths = {}
+    for tag, argv, path in PARAMGEN_RUNS:
+        line, launches = run_main(tag, select_params.main, argv, card, path)
+        out = json.loads(line)
+        if out["is_corr"] is not True:
+            raise SystemExit(f"paramgen {tag}: wrong decode")
+        paths[f"paramgen {tag}"] = launches
+    run_main("select_params " + " ".join(PARAMGEN_DRY), select_params.main,
+             PARAMGEN_DRY, card)
+    sel = search.select_params(int(PARAMGEN_DRY[0]), int(PARAMGEN_DRY[1]))
+    print(f"  selected {build_lut.lut_key(sel.params)} q' "
+          f"{sel.params.q_prime_bits} x {sel.factor}: cost {sel.cost} s, "
+          f"measured {sel.measured} (H100 LUT, {build_lut.KERNEL_VERSION})",
+          flush=True)
+    committed = build_lut.DEFAULT_LUT.read_bytes()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "lut.json")
+        _, launches = run_main(
+            f"build_lut {LUT_PRESET}", build_lut.main,
+            ["--presets", LUT_PRESET, "--out", out, "--trials", "2"], card,
+            SPIRAL_PATH)
+        paths[f"paramgen build_lut {LUT_PRESET}"] = launches
+        with open(out) as f:
+            entry = json.load(f)[build_lut.lut_key(preset(LUT_PRESET))]
+        shown = {k: v for k, v in entry.items() if k != "params"}
+        print(f"  entry: {json.dumps(shown)}", flush=True)
+        if not (entry["is_corr"] is True and entry["card"] == card and
+                entry["kernel_version"] == build_lut.KERNEL_VERSION):
+            raise SystemExit(f"build_lut {LUT_PRESET}: entry {entry}")
+        for figure in PARAMGEN_FIGURES:
+            run_main(f"harness {figure}", harness.main,
+                     [figure, "--results-dir", tmp], card)
+    if build_lut.DEFAULT_LUT.read_bytes() != committed:
+        raise SystemExit("phase 10 changed the committed H100 LUT")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1684,6 +1776,8 @@ def main() -> int:
           f"allocated on the card", flush=True)
     paths.update(run_measure(args.seed, card))
     t0 = phase("9 measure", t0)
+    paths.update(run_paramgen(card))
+    t0 = phase("10 paramgen", t0)
 
     out = []
     for kernel, (src, repl) in KERNEL_META.items():

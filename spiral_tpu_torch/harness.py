@@ -4,17 +4,29 @@ spiral_tpu/harness.py; ref: run_all.py / run_scheme.py).
 Figures:
     packingcomp   four-variant comparison on one scenario (the paper's
                   key table; ref: run_all.py:43-55)
+    table         main-comparison rows: the packingcomp rows plus the
+                  SealPIR / FastPIR / OnionPIR / NoPriv columns through
+                  run_scheme (ref: run_all.py scenarios_table/get_cost)
     ubench        per-stage breakdown incl. client stages (ref: run_all.py
                   scenarios_ubench / print_summary taxonomy)
     asympcomp     scaling over logN at fixed itemsize (ref: run_all.py:17-19)
     streaming     huge-DB throughput via the implicit working set (ref:
                   run_all.py scenarios_streaming + --random-data)
+    limits        upload-constrained deployments (ref: run_all.py
+                  scenarios_limits)
+    maxtotalquery rate and model time against an upload cap, per
+                  constraint predicate (ref: run_all.py
+                  scenarios_maxtotalquery)
+    application   movie, Wikipedia and voice-call scenarios (ref: run_all.py
+                  gen_application)
 
 Every explicit-DB cell checks its decode and raises on a wrong record
-(ref: run_all.py check_corr).  The JAX harness's other figures wait for
-modules the port does not have yet: table (run_scheme), limits,
-maxtotalquery and application (paramgen.search), dist (dist/shard);
-ablation's only switch, SPIRAL_FDIM=u32, is not ported.
+(ref: run_all.py check_corr).  limits, maxtotalquery and application are
+selection cells (paramgen.search.select_params, no server runs): sizes
+and rate are exact, the model time is the H100 LUT's entry where the
+selection is measured, else the proxy fitted to it.  The JAX harness's
+dist figure waits for dist/ (not ported yet); ablation's only switch,
+SPIRAL_FDIM=u32, is not ported.
 
 Server cost: cost_usd is the card's time at --usd-per-hour (no default:
 without it cost_usd is null) plus the reference's egress price per
@@ -24,6 +36,7 @@ results_torch/ (never the JAX harness's results/).
     python -m spiral_tpu_torch.harness packingcomp [--tiny] [--trials N]
     python -m spiral_tpu_torch.harness ubench --preset spiral_20_256
     python -m spiral_tpu_torch.harness streaming --logns 24,26,28
+    python -m spiral_tpu_torch.harness limits [--max-query-mb 33]
 
 Runs on the card unless --device cpu.
 """
@@ -306,11 +319,149 @@ def fig_streaming(args) -> list:
     return rows
 
 
+def fig_table(args) -> list:
+    """Main comparison table (ref: run_all.py:28-32 scenarios_table): the
+    Spiral variants measured on this device (fig_packingcomp), plus
+    SealPIR / FastPIR / OnionPIR / NoPriv columns via the run_scheme
+    adapters.  Competitor binaries are external (env SEALPIR_BIN /
+    FASTPIR_BIN / ONIONPIR_BIN); an absent system gives an `available:
+    false` cell instead of aborting the figure (SystemUnavailable)."""
+    from .run_scheme import SystemUnavailable, get_pp_size, run_system_tr
+
+    rows = fig_packingcomp(args)
+    scenario = "tiny" if args.tiny else "(20, 256)"
+    for r in rows:
+        r["scenario"] = scenario
+    log_n, itemsize = (4, 256) if args.tiny else (20, 256)
+    for system in ("sealpir", "fastpir", "onionpir", "nopriv"):
+        cell = {"variant": system, "scenario": scenario}
+        try:
+            res = run_system_tr(system, log_n, itemsize,
+                                trials=args.trials)
+            cost = get_cost(res["total_us"], res["resp_sz"],
+                            args.usd_per_hour)
+            cell.update({
+                "available": True,
+                "query_b": res.get("query_sz", 0),
+                "pub_b": get_pp_size(system, res) if system != "nopriv"
+                else 0,
+                "resp_b": res["resp_sz"],
+                "rate": round(itemsize / res["resp_sz"], 4)
+                if res["resp_sz"] else None,
+                "server_s": round(res["total_us"] / 1e6, 4),
+                "cost_usd": None if cost is None else round(cost, 9),
+            })
+        except SystemUnavailable as e:
+            cell.update({"available": False, "reason": str(e)})
+        rows.append(cell)
+    return rows
+
+
+def _dryrun_cell(system: str, log_n: int, itemsize: int, **constraints):
+    """Selection/model cell (the reference's select_params --dry-run path):
+    sizes and rate are exact; server time is the model cost (an entry of
+    the H100 LUT when one exists, else the proxy fitted to it)."""
+    from .paramgen.search import select_params
+    pack = "pack" in system
+    direct = "stream" in system
+    try:
+        sel = select_params(log_n, itemsize, direct_upload=direct,
+                            pack=pack, **constraints)
+    except ValueError:
+        return {"system": system, "log_n": log_n, "itemsize": itemsize,
+                "feasible": False}
+    p = sel.params
+    _, resp_b = _item_resp_bytes(p, pack)
+    resp_total = resp_b * sel.factor
+    db_b = (1 << log_n) * itemsize
+    return {
+        "system": system, "log_n": log_n, "itemsize": itemsize,
+        "feasible": True, "factor": sel.factor,
+        "query_sz": p.query_size_bytes(),
+        "param_sz": p.public_param_size_bytes(),
+        "resp_sz": resp_total,
+        "rate": round(itemsize / resp_total, 4),
+        "model_server_s": round(abs(sel.cost), 4),
+        "model_tput_MB_s": round(db_b / abs(sel.cost) / 1e6, 1)
+        if constraints.get("optimize_for", "") != "rate" else None,
+        "params": {"nu_1": p.nu_1, "nu_2": p.nu_2, "p_db": p.p_db,
+                   "t_gsw": p.t_gsw, "t_conv": p.t_conv, "t_exp": p.t_exp,
+                   "q_prime_bits": p.q_prime_bits, "out_n": p.out_n},
+    }
+
+
+def fig_limits(args) -> list:
+    """Upload-constrained deployments (ref: run_all.py scenarios_limits):
+    SpiralStream/SpiralStreamPack under a max online-query size."""
+    rows = []
+    cap = args.max_query_mb * 1_000_000
+    for log_n, itemsize in ((20, 256), (18, 30000), (14, 1000000)):
+        for system in ("spiralstream", "spiralstreampack"):
+            rows.append(_dryrun_cell(system, log_n, itemsize,
+                                     max_query_bytes=cap))
+    _print_rows(rows, ("system", "log_n", "itemsize", "rate", "param_sz",
+                       "query_sz", "resp_sz", "model_server_s"))
+    return rows
+
+
+def fig_maxtotalquery(args) -> list:
+    """Rate/tput vs upload cap, per constraint predicate
+    (ref: run_all.py scenarios_maxtotalquery)."""
+    kinds = {"query": "max_query_bytes", "param": "max_param_bytes",
+             "total-query": "max_total_query_bytes"}
+    rows = []
+    for mb in (1, 2, 5, 10, 20, 30, 40, 50, 60, 70):
+        for kind, kw in kinds.items():
+            for system in VARIANTS:
+                cell = _dryrun_cell(system, 14, 100000,
+                                    **{kw: mb * 1_000_000})
+                cell["cap_mb"], cell["predicate"] = mb, kind
+                rows.append(cell)
+    _print_rows([r for r in rows if r["feasible"]],
+                ("system", "cap_mb", "predicate", "rate", "query_sz",
+                 "param_sz"))
+    return rows
+
+
+def fig_application(args) -> list:
+    """Application scenarios (ref: run_all.py gen_application): movie
+    streaming (2^14 x 2 GB), Wikipedia (2^20 x 30 KB), voice call
+    (625 rounds of 2^14 x 6144 B).  Oversized items use the factored
+    pipeline; cells are selection/model numbers (the reference likewise
+    scales one measured pass by `factor`)."""
+    rows = []
+    for system in ("spiralstream", "spiralstreampack"):
+        c = _dryrun_cell(system, 14, 2_000_000_000,
+                         max_query_bytes=33_000_000)
+        c["scenario"] = "movie"
+        rows.append(c)
+    for system in VARIANTS:
+        c = _dryrun_cell(system, 20, 30000)
+        c["scenario"] = "wiki"
+        rows.append(c)
+    for system in ("spiralstream", "spiralstreampack"):
+        c = _dryrun_cell(system, 14, 6144, max_query_bytes=33_000_000)
+        if c["feasible"]:
+            rounds = 625
+            c["resp_sz"] *= rounds
+            c["model_server_s"] = round(c["model_server_s"] * rounds, 3)
+            c["rate"] = round(6144 * rounds / c["resp_sz"], 4)
+        c["scenario"] = "voice(625)"
+        rows.append(c)
+    _print_rows(rows, ("scenario", "system", "rate", "query_sz", "param_sz",
+                       "resp_sz", "model_server_s"))
+    return rows
+
+
 FIGURES = {
     "packingcomp": fig_packingcomp,
+    "table": fig_table,
     "ubench": fig_ubench,
     "asympcomp": fig_asympcomp,
     "streaming": fig_streaming,
+    "limits": fig_limits,
+    "maxtotalquery": fig_maxtotalquery,
+    "application": fig_application,
 }
 
 
@@ -373,6 +524,7 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default=None)
     ap.add_argument("--logns", default="24,26,28")
     ap.add_argument("--slab-bytes", type=int, default=2 << 30)
+    ap.add_argument("--max-query-mb", type=int, default=33)
     ap.add_argument("--device", default="cuda",
                     help="the device the servers run on (default cuda)")
     ap.add_argument("--usd-per-hour", type=float, default=None,

@@ -31,4 +31,5 @@ def test_port_imports_without_jax():
     assert len(names) >= 25
     assert {f"spiral_tpu_torch.{m}" for m in
             ("native", "serialize", "factored", "profiling", "bench",
-             "harness")} <= set(names)
+             "harness", "paramgen.search", "select_params", "run_scheme",
+             "output_params")} <= set(names)
