@@ -93,7 +93,24 @@ Phases, each printing its own lines and its wall time:
      whether it is measured; build_lut measuring spiral_20_256 into a
      temporary file (its entry correct, with the port's tag and this
      card; the committed LUT untouched); harness limits and application
-     (selection cells), each JSON line printed.
+     (selection cells), each JSON line printed;
+ 11. scale-out (dist/), in a real NCCL process group of one rank made in
+     this process on a free localhost port and destroyed at the end of the
+     phase: at spiral_20_256 the sharded SpiralServer (mesh of 1) against
+     the unsharded one over the same 2 GiB database, three queries (rows
+     equal, decoded; process_query and process_query_fused times of
+     both), a batch of 8 (rows equal), multihost.ingest_and_serve (the
+     database encoded again by encode_db_local; rows equal) and
+     sharded_firstdim_and_fold (equal to the unsharded fold output); then
+     worlds 2 and 4 one rank at a time on the one card (each rank's column
+     block through K2, timed with CUDA events beside its byte bound, its
+     local rounds, the survivors stacked in rank order as the all-gather
+     stacks them, the tail and the modulus switch: rows equal to the
+     unsharded rows); the sharded PackServer at spiralpack_20_256 and the
+     sharded implicit spiral_24_256 query (rows equal to the unsharded
+     servers'); graft_entry's step and dryrun_multichip(1); harness dist
+     --devices 1 (one row, correct).  The card has no peer here, so no
+     multi-card time is measured.
 Phases 4, 5 and 7 also send one query of each full preset over the wire
 (serialize.py: query bytes -> process_query_fused -> response bytes ->
 decode, equal to its process_query rows), count the host syncs torch
@@ -238,6 +255,15 @@ PARAMGEN_RUNS = (
 PARAMGEN_DRY = ["14", "100000", "--dry-run"]
 LUT_PRESET = "spiral_20_256"
 PARAMGEN_FIGURES = ("limits", "application")
+# phase 11: its presets, the worlds run one rank at a time on the one card
+# (the K2 block each card of such a deployment streams) and the kernels of
+# its contraction-sharded and one-rank-at-a-time runs
+DIST_PRESET = "spiral_20_256"
+DIST_PACK_PRESET = "spiralpack_20_256"
+DIST_IMPLICIT_PRESET = "spiral_24_256"
+DIST_WORLDS = (1, 2, 4)
+DIST_BATCH_WORLD = 2
+DIST_FOLD_PATH = ("ntt", "firstdim", "fold")
 # a kernel whose mean over back-to-back launches is below this (the least
 # of TIMINGS event timings) is timed again as the replay of a CUDA graph of
 # those launches
@@ -1672,6 +1698,356 @@ def run_paramgen(card: str) -> dict:
     return paths
 
 
+def count_launches(tag: str, run, path: tuple, card: str):
+    """run() with the launches counted from 0 -> (its result, the
+    launches); fails if a kernel of `path` was never launched."""
+    from spiral_tpu_torch import kernels
+    kernels.reset_launches()
+    out = run()
+    launches = dict(kernels.LAUNCHES)
+    print(f"{tag} launches: {launches} [{card}]", flush=True)
+    if not all(launches[k] for k in path):
+        raise SystemExit(f"{tag}: a kernel of {path} was never launched")
+    return out, launches
+
+
+def uncounted(run):
+    """run(), its launches taken out of the counts again: a timing's
+    repeats are not the path's launches."""
+    from spiral_tpu_torch import kernels
+    before = dict(kernels.LAUNCHES)
+    out = run()
+    kernels.LAUNCHES.update(before)
+    return out
+
+
+def dist_spiral(seed: int, card: str, mesh) -> dict:
+    """Phase 11 at DIST_PRESET: the sharded server (mesh of 1) against the
+    unsharded one, queries, batch, ingest, the contraction split and the
+    one-rank-at-a-time worlds (DIST_WORLDS, and a batch at
+    DIST_BATCH_WORLD), each rank a server on shard.RankOf.  Returns {path:
+    launches}."""
+    from spiral_tpu_torch.crypto.decode import (modswitch_device,
+                                                response_from_device_rows,
+                                                responses_from_device_rows)
+    from spiral_tpu_torch.dist import multihost, shard
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.pir import SpiralClient, SpiralServer
+    from spiral_tpu_torch.server.db import encode_db, random_db
+    from spiral_tpu_torch.server.firstdim import (multiply_query_by_db,
+                                                  reorient_query)
+
+    name, params = DIST_PRESET, preset(DIST_PRESET)
+    rng = np.random.default_rng(seed)
+    pts = random_db(params, rng)
+    db = encode_db(pts, params, torch.device("cuda"))
+    client = SpiralClient(params, seed=seed, device="cuda")
+    pub = client.setup()
+    ref = SpiralServer(params, db, pub)
+    server = SpiralServer(params, db, pub, mesh=mesh)
+    idxs = [0, params.total_n - 1, int(rng.integers(0, params.total_n))]
+    qs = [client.query(i) for i in idxs]
+    torch.cuda.synchronize()
+    paths = {}
+
+    def serve_all():
+        return [server.process_query(q) for q in qs]
+
+    sharded, paths[f"{name} sharded"] = count_launches(
+        f"{name} sharded, {len(qs)} queries", serve_all, SPIRAL_PATH, card)
+    answers = []
+    for idx, q, (resp, tm) in zip(idxs, qs, sharded):
+        want, tm_ref = ref.process_query(q)
+        ok = np.array_equal(client.decode(resp), pts[idx].astype(object))
+        same = same_rows(resp, want)
+        # served times in turns: unsharded, sharded, sharded, unsharded
+        served = [srv.process_query_fused(q)[1] for srv in
+                  (ref, server, server, ref)]
+        print(f"{name} sharded (mesh of 1) query idx={idx}: correct={ok} "
+              f"rows equal the unsharded server's={same}; process_query "
+              f"{tm.total_us / 1e3:.3f} ms (cuda events; first dim + fold "
+              f"{tm.first_multiply_us / 1e3:.3f}, folding_us "
+              f"{tm.folding_us}) against unsharded {tm_ref.total_us / 1e3:.3f}"
+              f" ms (first dim {tm_ref.first_multiply_us / 1e3:.3f} + fold "
+              f"{tm_ref.folding_us / 1e3:.3f}); process_query_fused unsharded"
+              f" {served[0] * 1e3:.3f}, {served[3] * 1e3:.3f} ms, sharded "
+              f"{served[1] * 1e3:.3f}, {served[2] * 1e3:.3f} ms (host clock) "
+              f"[{card}]", flush=True)
+        if not (ok and same and tm.folding_us == 0):
+            raise SystemExit(f"{name} sharded query {idx}: decodes={ok}, "
+                             f"rows equal={same}, folding_us {tm.folding_us}")
+        answers.append(want)
+
+    bidx = idxs + [int(i) for i in rng.integers(0, params.total_n,
+                                                BATCH - len(idxs))]
+    bqs = [client.query(i) for i in bidx]
+    torch.cuda.synchronize()
+    (resps, seconds), paths[f"{name} sharded batch"] = count_launches(
+        f"{name} sharded batch", lambda: server.process_query_batch(bqs),
+        SPIRAL_BATCH_PATH, card)
+    want_b, seconds_ref = ref.process_query_batch(bqs)
+    same = all(same_rows(a, b) for a, b in zip(resps, want_b))
+    print(f"{name} sharded batch of {len(bqs)}: rows equal the unsharded "
+          f"batch's={same}; {seconds * 1e3:.3f} ms against unsharded "
+          f"{seconds_ref * 1e3:.3f} ms (host clock, until the rows are on "
+          f"the host) [{card}]", flush=True)
+    if not same:
+        raise SystemExit(f"{name} sharded batch: rows differ")
+
+    def ingest():
+        t0 = time.perf_counter()
+        srv = multihost.ingest_and_serve(lambda rec: pts[rec], params, pub,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        print(f"{name} ingest_and_serve: encode_db_local and the server in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        return [srv.process_query(q)[0] for q in qs]
+
+    got, paths[f"{name} ingest_and_serve"] = count_launches(
+        f"{name} ingest_and_serve", ingest, SPIRAL_PATH, card)
+    same = all(same_rows(a, b) for a, b in zip(got, answers))
+    print(f"{name} ingest_and_serve: the {len(qs)} queries' rows equal the "
+          f"unsharded server's={same} [{card}]", flush=True)
+    if not same:
+        raise SystemExit(f"{name} ingest_and_serve: rows differ")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    first_b, gsw_b = ref.query_scalars_batch([qs[0]])
+    C_reg = ref.compose(first_b[0])
+    q_pos, q_neg = ref.convert(gsw_b[0])
+    want = ref.fold(ref.first_dim(C_reg), q_pos, q_neg)
+    step = shard.sharded_firstdim_and_fold(params, mesh)
+    got, paths[f"{name} contraction split"] = count_launches(
+        f"{name} sharded_firstdim_and_fold", lambda: step(
+            shard.shard_db(db.data, mesh), reorient_query(C_reg), q_pos,
+            q_neg), DIST_FOLD_PATH, card)
+    same = torch.equal(got, want)
+    print(f"{name} sharded_firstdim_and_fold: equals the unsharded fold "
+          f"output={same}", flush=True)
+    if not same:
+        raise SystemExit(f"{name} sharded_firstdim_and_fold differs")
+
+    qk = reorient_query(C_reg)
+    n1, d = params.n1, params.poly_len
+    for world in DIST_WORLDS:
+        rows_local = params.num_per // world
+
+        def ranks():
+            """Each rank's program on the server code that serves at
+            `world`: its block's K2 (timed), first dim and local rounds;
+            the survivors stacked in rank order, then the tail."""
+            survivors = []
+            for rank in range(world):
+                srv = SpiralServer(params, db, pub,
+                                   mesh=shard.RankOf(world, rank))
+                block = srv.db.data
+                ms, how = uncounted(lambda: cuda_ms(
+                    lambda: multiply_query_by_db(block, qk), 5))
+                m_loc = block.shape[-1]
+                nbytes = (block.numel() + qk.numel() + 2 * d * n1 * m_loc) * 4
+                mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = K2_MACS_PER_PRODUCT * 2 * d * block.shape[2] * \
+                    m_loc * n1 / INT8_MACS_PER_S * 1e3
+                bound = max(mem_ms, ops_ms)
+                print(f"{name} world {world} rank {rank}: K2 over its "
+                      f"{block.numel() * 4 / 2**30:.3f} GiB block "
+                      f"({rows_local} rows) {ms:.4f} ms ({how}) bound "
+                      f"{bound:.4f} ms ({'bytes' if mem_ms >= ops_ms else 'operations'}"
+                      f": {nbytes} B at 3.35 TB/s; {bound / ms:.1%} of it) "
+                      f"[{card}]", flush=True)
+                first_b, gsw_b = srv.query_scalars_batch([qs[0]])
+                q_pos, q_neg = srv.convert(gsw_b[0])
+                cts = srv.first_dim(srv.compose(first_b[0]))
+                survivors.append(shard.fold_local(cts, q_pos, q_neg, params,
+                                                  srv._fold_g))
+                del srv, block, cts
+            final = shard.fold_tail(torch.cat(survivors), q_pos, q_neg,
+                                    params)
+            return response_from_device_rows(*modswitch_device(final,
+                                                               params))
+
+        resp, paths[f"{name} world {world} one rank at a time"] = \
+            count_launches(f"{name} world {world} one rank at a time", ranks,
+                           SPIRAL_PATH, card)
+        same = same_rows(resp, answers[0])
+        print(f"{name} world {world}, {world} ranks one at a time: rows "
+              f"equal the unsharded server's={same}", flush=True)
+        if not same:
+            raise SystemExit(f"{name} world {world}: rows differ")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    world = DIST_BATCH_WORLD
+
+    def batch_ranks():
+        survivors = []
+        for rank in range(world):
+            srv = SpiralServer(params, db, pub, mesh=shard.RankOf(world, rank))
+            first_b, gsw_b = srv.query_scalars_batch(bqs)
+            q_pos_b, q_neg_b = srv.convert(gsw_b)
+            cts_b = srv.first_dim_batch(srv.compose(first_b))
+            survivors.append(shard.fold_local_batch(cts_b, q_pos_b, q_neg_b,
+                                                    params))
+            del srv, cts_b
+        finals = shard.fold_tail_batch(torch.cat(survivors, 1), q_pos_b,
+                                       q_neg_b, params)
+        return responses_from_device_rows(*modswitch_device(finals, params))
+
+    got, paths[f"{name} batch world {world} one rank at a time"] = \
+        count_launches(f"{name} batch of {len(bqs)}, world {world} one rank "
+                       f"at a time", batch_ranks, SPIRAL_BATCH_PATH, card)
+    same = all(same_rows(a, b) for a, b in zip(got, want_b))
+    print(f"{name} batch of {len(bqs)}, world {world}, {world} ranks one at "
+          f"a time (K5 local rounds and tail): rows equal the unsharded "
+          f"batch's={same}", flush=True)
+    if not same:
+        raise SystemExit(f"{name} batch world {world}: rows differ")
+    return paths
+
+
+def dist_pack_implicit(seed: int, card: str, mesh) -> dict:
+    """Phase 11: a sharded PackServer at DIST_PACK_PRESET and a sharded
+    implicit query at DIST_IMPLICIT_PRESET (a mesh of 1, then
+    DIST_BATCH_WORLD ranks one at a time, each on shard.RankOf), each
+    against the unsharded server on the same database.  Returns {path:
+    launches}."""
+    from spiral_tpu_torch import pack as pk
+    from spiral_tpu_torch.crypto.decode import (modswitch_device,
+                                                response_from_device_rows)
+    from spiral_tpu_torch.dist import shard
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.pir import SpiralClient, SpiralServer
+    from spiral_tpu_torch.server.db import random_implicit_db
+
+    paths = {}
+    name, params = DIST_PACK_PRESET, preset(DIST_PACK_PRESET)
+    rng = np.random.default_rng(seed)
+    pts = pk.random_pack_db(params, rng)
+    db = pk.encode_pack_db(pts, params, torch.device("cuda"))
+    client = pk.PackClient(params, seed=seed, device="cuda")
+    pub = client.setup()
+    idx = int(rng.integers(0, params.total_n))
+    q = client.query(idx)
+    torch.cuda.synchronize()
+    (resp, tm), paths[f"{name} sharded"] = count_launches(
+        f"{name} sharded", lambda: pk.PackServer(
+            params, db, pub, mesh=mesh).process_query(q), PACK_PATH, card)
+    want, tm_ref = pk.PackServer(params, db, pub).process_query(q)
+    ok = np.array_equal(client.decode(resp), pts[idx].astype(object))
+    same = same_rows(resp, want)
+    print(f"{name} sharded (mesh of 1) query idx={idx}: correct={ok} rows "
+          f"equal the unsharded server's={same}; {tm.total_us / 1e3:.3f} ms "
+          f"against {tm_ref.total_us / 1e3:.3f} ms (cuda events) [{card}]",
+          flush=True)
+    if not (ok and same):
+        raise SystemExit(f"{name} sharded: decodes={ok}, rows equal={same}")
+    del db, resp, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    name, params = DIST_IMPLICIT_PRESET, preset(DIST_IMPLICIT_PRESET)
+    idb = random_implicit_db(params, rng, device="cuda")
+    client = SpiralClient(params, seed=seed, device="cuda")
+    pub = client.setup()
+    q = client.query(int(rng.integers(0, params.total_n)))
+    torch.cuda.synchronize()
+    (resp, tm), paths[f"{name} implicit sharded"] = count_launches(
+        f"{name} implicit sharded", lambda: SpiralServer(
+            params, idb, pub, mesh=mesh).process_query(q), IMPLICIT_PATH,
+        card)
+    want, tm_ref = SpiralServer(params, idb, pub).process_query(q)
+    same = same_rows(resp, want)
+    print(f"{name} implicit sharded (mesh of 1, {idb.num_chunks} chunks): "
+          f"rows equal the unsharded server's={same}; "
+          f"{tm.total_us / 1e3:.3f} ms against {tm_ref.total_us / 1e3:.3f} "
+          f"ms (cuda events) [{card}]", flush=True)
+    if not same:
+        raise SystemExit(f"{name} implicit sharded: rows differ")
+
+    world = DIST_BATCH_WORLD
+
+    def ranks():
+        """Each rank streams its num_chunks / world chunks of the slab,
+        its query rolled by its first chunk, then its local rounds."""
+        survivors = []
+        for rank in range(world):
+            srv = SpiralServer(params, idb, pub, mesh=shard.RankOf(world, rank))
+            first_b, gsw_b = srv.query_scalars_batch([q])
+            q_pos, q_neg = srv.convert(gsw_b[0])
+            cts = srv.first_dim(srv.compose(first_b[0]))
+            survivors.append(shard.fold_local(cts, q_pos, q_neg, params,
+                                              srv._fold_g))
+            del srv, cts
+        final = shard.fold_tail(torch.cat(survivors), q_pos, q_neg, params)
+        return response_from_device_rows(*modswitch_device(final, params))
+
+    # a rank's local rounds still reach K8b's sizes (512 cts out and up)
+    resp, paths[f"{name} implicit world {world} one rank at a time"] = \
+        count_launches(f"{name} implicit world {world} one rank at a time",
+                       ranks, IMPLICIT_PATH, card)
+    same = same_rows(resp, want)
+    print(f"{name} implicit, world {world}, {world} ranks one at a time "
+          f"({idb.num_chunks // world} chunks each): rows equal the "
+          f"unsharded server's={same}", flush=True)
+    if not same:
+        raise SystemExit(f"{name} implicit world {world}: rows differ")
+    return paths
+
+
+def run_dist(seed: int, card: str) -> dict:
+    """Phase 11, scale-out: a real NCCL world of one rank in this process
+    (a failed init or collective raises), the sharded servers against the
+    unsharded ones (dist_spiral, dist_pack_implicit), graft_entry's step
+    and dryrun_multichip(1), and harness dist --devices 1.  Returns {path:
+    launches}."""
+    import torch.distributed as dist
+    from spiral_tpu_torch import graft_entry, harness
+    from spiral_tpu_torch.dist import multihost, shard
+
+    multihost.initialize(f"localhost:{multihost.free_port()}", 1, 0,
+                         device="cuda")
+    try:
+        print(f"dist: a world of {dist.get_world_size()}, backend "
+              f"{dist.get_backend()}", flush=True)
+        mesh = shard.make_db_mesh(1, "cuda")
+        paths = dist_spiral(seed, card, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(dist_pack_implicit(seed, card, mesh))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def graft():
+            fn, args = graft_entry.entry("cuda")
+            out = fn(*args)
+            graft_entry.dryrun_pipeline(1, "cuda")
+            return out
+
+        # dryrun_multichip(1): its pipeline counted, its kernel check not
+        out, paths["graft_entry"] = count_launches(
+            "graft_entry entry() and dryrun_pipeline(1)", graft,
+            SPIRAL_PATH, card)
+        uncounted(lambda: graft_entry.check_kernels(
+            graft_entry.dryrun_params(1)))
+        print(f"graft_entry: entry() step {tuple(out.shape)}, "
+              f"dryrun_multichip(1) decoded and its kernels (K3, K4, K8a, "
+              f"K1) equal their plain versions", flush=True)
+        with tempfile.TemporaryDirectory() as results:
+            rc, paths["harness dist"] = count_launches(
+                "harness dist --devices 1", lambda: harness.main(
+                    ["dist", "--devices", "1", "--results-dir", results]),
+                SPIRAL_PATH, card)
+            rows = json.loads(open(os.path.join(
+                results, "dist_results.json")).read())
+        print(f"harness dist --devices 1: rc {rc}, rows {rows}", flush=True)
+        if rc != 0 or len(rows) != 1 or not rows[0]["correct"]:
+            raise SystemExit(f"harness dist: rc {rc}, rows {rows}")
+    finally:
+        dist.destroy_process_group()
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1778,6 +2154,10 @@ def main() -> int:
     t0 = phase("9 measure", t0)
     paths.update(run_paramgen(card))
     t0 = phase("10 paramgen", t0)
+    paths.update(run_dist(args.seed, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = phase("11 dist", t0)
 
     out = []
     for kernel, (src, repl) in KERNEL_META.items():

@@ -19,14 +19,17 @@ Figures:
                   scenarios_maxtotalquery)
     application   movie, Wikipedia and voice-call scenarios (ref: run_all.py
                   gen_application)
+    dist          scaling of the database-dependent phase over meshes of
+                  the first n ranks (row-sharded first dim, one
+                  all-gather; dist/shard.py)
 
 Every explicit-DB cell checks its decode and raises on a wrong record
 (ref: run_all.py check_corr).  limits, maxtotalquery and application are
 selection cells (paramgen.search.select_params, no server runs): sizes
 and rate are exact, the model time is the H100 LUT's entry where the
-selection is measured, else the proxy fitted to it.  The JAX harness's
-dist figure waits for dist/ (not ported yet); ablation's only switch,
-SPIRAL_FDIM=u32, is not ported.
+selection is measured, else the proxy fitted to it.  The JAX
+harness's ablation figure is not ported: its only switch,
+SPIRAL_FDIM=u32, is not.
 
 Server cost: cost_usd is the card's time at --usd-per-hour (no default:
 without it cost_usd is null) plus the reference's egress price per
@@ -37,6 +40,7 @@ results_torch/ (never the JAX harness's results/).
     python -m spiral_tpu_torch.harness ubench --preset spiral_20_256
     python -m spiral_tpu_torch.harness streaming --logns 24,26,28
     python -m spiral_tpu_torch.harness limits [--max-query-mb 33]
+    torchrun --nproc-per-node 4 -m spiral_tpu_torch.harness dist
 
 Runs on the card unless --device cpu.
 """
@@ -51,6 +55,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .bench import pt_dtype, sync
 
@@ -453,8 +458,78 @@ def fig_application(args) -> list:
     return rows
 
 
+def fig_dist(args) -> list | None:
+    """Scaling of the database-dependent phase (row-sharded first dim,
+    local fold rounds, one all-gather, the replicated tail) over meshes of
+    the first n ranks, n from --devices: T(1)/(n*T(n)) per size, every
+    explicit-DB row decode-checked (a wrong record raises).  It runs in
+    the caller's world (torchrun, multihost.initialize), else in a world
+    of one; sizes above the world's are dropped, as the JAX figure drops
+    those above its device count, and size 1 is the unsharded server.
+    Every rank builds the same client, database and query from the seeds
+    and takes part in making each mesh; the ranks of a mesh serve, and
+    rank 0 times.  Rank 0 returns the rows, every other rank None."""
+    from .dist import multihost, shard
+    from .params import Params, preset
+    from .pir import SpiralClient, SpiralServer
+    from .server.db import encode_db, random_db, random_implicit_db
+
+    with multihost.world(args.device):
+        world, rank = dist.get_world_size(), dist.get_rank()
+        device = torch.device(args.device)
+        if args.tiny:
+            params = Params(nu_1=2, nu_2=3, p_db=256, q_prime_bits=20,
+                            t_gsw=8, t_conv=4, t_exp=8, t_exp_right=8,
+                            poly_len=256)
+        else:
+            params = preset(args.preset or "spiral_20_256")
+        rng = np.random.default_rng(0)
+        client = SpiralClient(params, seed=1, device=device)
+        pub = client.setup()
+        if args.implicit:
+            db = random_implicit_db(params, rng,
+                                    max_slab_bytes=args.slab_bytes,
+                                    device=device)
+            pts = None
+        else:
+            pts = random_db(params, rng)
+            db = encode_db(pts, params, device)
+        idx = int(rng.integers(0, params.total_n))
+        query = client.query(idx)
+
+        sizes = [n for n in map(int, args.devices.split(",")) if n <= world]
+        name = torch.cuda.get_device_name(device) \
+            if device.type == "cuda" else "cpu"
+        rows, t1 = [], None
+        for n in sizes:
+            mesh = shard.make_db_mesh(n, device) if n > 1 else None
+            if rank >= n:
+                continue
+            server = SpiralServer(params, db, pub, mesh=mesh)
+            best = None
+            for _ in range(max(1, args.trials)):
+                resp, s = server.process_query_fused(query)
+                best = s if best is None else min(best, s)
+            correct = None
+            if pts is not None:
+                correct = bool(np.array_equal(client.decode(resp),
+                                              pts[idx].astype(object)))
+                if not correct:
+                    raise RuntimeError(f"mesh size {n}: wrong record")
+            t1 = best if t1 is None else t1
+            rows.append({"devices": n, "server_s": round(best, 4),
+                         "correct": correct, "speedup": round(t1 / best, 3),
+                         "efficiency": round(t1 / (n * best), 3),
+                         "device": name})
+    if rank:
+        return None
+    _print_rows(rows, ("devices", "server_s", "speedup", "efficiency"))
+    return rows
+
+
 FIGURES = {
     "packingcomp": fig_packingcomp,
+    "dist": fig_dist,
     "table": fig_table,
     "ubench": fig_ubench,
     "asympcomp": fig_asympcomp,
@@ -525,6 +600,11 @@ def main(argv=None) -> int:
     ap.add_argument("--logns", default="24,26,28")
     ap.add_argument("--slab-bytes", type=int, default=2 << 30)
     ap.add_argument("--max-query-mb", type=int, default=33)
+    ap.add_argument("--devices", default="1,2,4,8",
+                    help="dist: the mesh sizes (ranks), those above the "
+                         "world's dropped")
+    ap.add_argument("--implicit", action="store_true",
+                    help="dist: an implicit database (--slab-bytes)")
     ap.add_argument("--device", default="cuda",
                     help="the device the servers run on (default cuda)")
     ap.add_argument("--usd-per-hour", type=float, default=None,
@@ -542,6 +622,8 @@ def main(argv=None) -> int:
         rows = load_results(args.figure, args.results_dir)
     else:
         rows = FIGURES[args.figure](args)
+        if rows is None:        # a rank other than 0 of the dist figure
+            return 0
         path = save_results(args.figure, rows, args.results_dir)
         print(f"saved: {path}", file=sys.stderr)
 

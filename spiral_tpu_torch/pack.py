@@ -14,7 +14,13 @@ back (pir.serve_fused).  process_query_batch runs them over a batch
 (the JAX ``full_packed_batch``): K2 streams the database once for all
 queries, the fold is one K5 launch per round and K7 one launch.  The
 server takes an EncodedDb or an ImplicitDb (served one query at a time,
-as in the JAX package).
+as in the JAX package).  With ``mesh`` (dist/shard.py) an encoded
+database is row-sharded over its (trial, position) columns: each rank
+keeps only its column block (a ShardedDb) and streams it through K2, the
+K2 outputs are gathered along the column axis, and fold (K6) and pack
+(K7) run replicated on every rank (spiral_tpu/pack.py:328-363, 409-425);
+an implicit database with a mesh raises ValueError, as in the JAX
+package.
 
 Where ``direct_upload_first`` holds (SpiralStreamPack) the client uploads
 every ct directly: dim0 first-dimension scalars, then for each GSW digit
@@ -45,6 +51,7 @@ from .crypto.publicparams import (expansion_keyswitch_matrices,
 from .crypto.query import (Query, encrypt_b_batch, gsw_digit_values,
                            new_seed, packed_query, reconstruct_cts,
                            sigmas_ntt)
+from .dist import shard
 from .pir import (ServerTimings, StageClock, db_tensor, no_mark,
                   serve_fused, stack_queries)
 from .server import db as db_mod
@@ -225,9 +232,18 @@ def regev_to_simple_gsw(cv: torch.Tensor, V: torch.Tensor,
 
 class PackServer:
     def __init__(self, params: Params, db: EncodedDb | ImplicitDb,
-                 pub: PackPublicParams):
-        self.params, self.db, self.pub = params, db, pub
-        self.device = db_tensor(db).device
+                 pub: PackPublicParams, mesh=None):
+        self.params, self.db, self.pub, self.mesh = params, db, pub, mesh
+        # what K2 streams on this rank
+        self._block = db_tensor(db)
+        if mesh is not None:
+            if isinstance(db, ImplicitDb):
+                raise ValueError("implicit pack DB does not support mesh")
+            self._group = shard.db_axis(mesh)[0]
+            self._block = shard.shard_db_rows(
+                db.data, params.out_n ** 2 * params.num_per, mesh)
+            self.db = db_mod.ShardedDb(self._block, params, mesh)
+        self.device = self._block.device
         self.num_chunks = db.num_chunks if isinstance(db, ImplicitDb) else 1
         self.last_batch_timings: ServerTimings | None = None
         self._g_ntt = ntt.forward(build_gadget(2, 2 * params.t_gsw,
@@ -300,11 +316,13 @@ class PackServer:
     def first_dim_batch(self, first_b):
         """first_b (B, dim0, 2, 1, 2, d) -> (B, T, num_per, 2, 1, 2, d)
         coeff; an implicit slab's trial-major columns land in the same
-        (T, num_per) order."""
+        (T, num_per) order, and under a mesh the ranks' column blocks,
+        gathered in rank order."""
         p = self.params
-        res = multiply_query_by_db_batch(db_tensor(self.db),
-                                         first_b[:, :, :, 0],
+        res = multiply_query_by_db_batch(self._block, first_b[:, :, :, 0],
                                          self.num_chunks)
+        if self.mesh is not None:
+            res = shard.all_gather_tiled(res, self._group, dim=-1)
         d, T, B = p.poly_len, p.out_n ** 2, first_b.shape[0]
         cts = res.reshape(2, d, B, 2, T, p.num_per).permute(2, 4, 5, 3, 0, 1)
         return ntt.inverse(cts[:, :, :, :, None])

@@ -18,6 +18,19 @@ process_query_fused is the serving path (the JAX one-dispatch
 ``_run_single``): the same stages enqueued back to back with no clock
 between them, timed on the host until the response rows are on the host.
 final_ciphertext stops before the modulus switch.
+
+With ``mesh`` (a torch.distributed DeviceMesh with a "db" dimension,
+dist/shard.py) the database is row-sharded: each rank streams its column
+block through K2, folds its rows to one survivor, and after one
+all-gather every rank folds the tail and switches the modulus, so every
+rank holds the response (the JAX mesh server, spiral_tpu/pir.py:98-156,
+223-306).  An EncodedDb must fit on each card: the server cuts this
+rank's block from it and keeps only the block (as ``self.db``, a
+ShardedDb), so the full tensor is freed once the caller drops it;
+multihost.ingest_and_serve never holds more than the block.  An implicit
+slab is replicated instead and each rank streams its share of the
+chunks.  First dim and fold are then one stage, timed as
+first_multiply_us with folding_us 0, as the JAX mesh server reports them.
 """
 from __future__ import annotations
 
@@ -40,7 +53,9 @@ from .crypto.publicparams import PublicParams, generate_public_params
 from .crypto.query import (Query, generate_query, query_b_rows,
                            reconstruct_cts)
 from .server.convert import regev_to_gsw_batch, scal_to_mat_batch
-from .server.db import EncodedDb, ImplicitDb, encode_db, random_db
+from .dist import shard
+from .server.db import (EncodedDb, ImplicitDb, ShardedDb, encode_db,
+                        random_db)
 from .server.expand import (coefficient_expansion, neg_monomial_ntts,
                             reorder_from_stopround)
 from .server.firstdim import (finish_output_batch, multiply_query_by_db_batch,
@@ -136,8 +151,9 @@ def serve_fused(server, query: Query):
     return server._response(*rows), seconds
 
 
-def db_tensor(db: EncodedDb | ImplicitDb) -> torch.Tensor:
-    """The tensor K2 streams: the encoded database or the implicit slab."""
+def db_tensor(db: EncodedDb | ImplicitDb | ShardedDb) -> torch.Tensor:
+    """The tensor K2 streams: the encoded database, a rank's block of one or
+    the implicit slab."""
     return db.slab if isinstance(db, ImplicitDb) else db.data
 
 
@@ -158,11 +174,31 @@ def stack_queries(queries: list[Query], device) -> tuple[list[int],
 
 
 class SpiralServer:
-    def __init__(self, params: Params, db: EncodedDb | ImplicitDb,
-                 pub: PublicParams):
-        self.params, self.db, self.pub = params, db, pub
-        self.device = db_tensor(db).device
+    def __init__(self, params: Params,
+                 db: EncodedDb | ImplicitDb | ShardedDb, pub: PublicParams,
+                 mesh=None):
+        self.params, self.db, self.pub, self.mesh = params, db, pub, mesh
         self.num_chunks = db.num_chunks if isinstance(db, ImplicitDb) else 1
+        # what K2 streams on this rank: its tensor, chunks and first chunk
+        self._block, self._chunks, self._first_chunk = \
+            db_tensor(db), self.num_chunks, 0
+        if isinstance(db, ShardedDb) and mesh is None:
+            raise ValueError("ShardedDb requires a mesh")
+        if mesh is not None:
+            self._group, world, rank = shard.db_axis(mesh)
+            if isinstance(db, ImplicitDb):
+                if db.num_chunks % world:
+                    raise ValueError(
+                        f"implicit num_chunks {db.num_chunks} not divisible "
+                        f"by mesh size {world}")
+                self._chunks = db.num_chunks // world
+                self._first_chunk = rank * self._chunks
+            elif isinstance(db, EncodedDb):
+                # the rank keeps its block only
+                self._block = shard.shard_db_rows(db.data, params.num_per,
+                                                  mesh)
+                self.db = ShardedDb(self._block, params, mesh)
+        self.device = self._block.device
         self.last_batch_timings: ServerTimings | None = None
         d = params.poly_len
         self._g2_ntt = ntt.forward(build_gadget(params.n1, params.m2, d,
@@ -243,11 +279,12 @@ class SpiralServer:
     def first_dim_batch(self, C_reg_b):
         """(B, dim0, n1, n0, 2, d) -> (B, num_per, n1, n2, 2, d) coeff: K2
         streams the database (or the slab, num_chunks times) once for the
-        batch."""
+        batch; under a mesh this rank's block (or chunks) and its
+        num_per / world rows."""
         n2 = self.params.n2
-        res = multiply_query_by_db_batch(db_tensor(self.db),
+        res = multiply_query_by_db_batch(self._block,
                                          reorient_query(C_reg_b),
-                                         self.num_chunks)
+                                         self._chunks, self._first_chunk)
         # the columns' cts: num_per (F*num_per over a factored database)
         return ntt.inverse(finish_output_batch(res, res.shape[-1] // n2, n2))
 
@@ -256,10 +293,18 @@ class SpiralServer:
 
     def fold_batch(self, cts_b, q_pos_b, q_neg_b):
         """-> the survivors (B, n1, n2, 2, d), coeff: one K5 launch per
-        round."""
+        round (under a mesh shard.fold_sharded_batch)."""
+        if self.mesh is not None:
+            return shard.fold_sharded_batch(cts_b, q_pos_b, q_neg_b,
+                                            self.params, self._group)
         return fold_rounds_batch(cts_b, q_pos_b, q_neg_b, self.params)[:, 0]
 
     def fold(self, cts_coeff, q_pos, q_neg):
+        """-> the survivor (n1, n2, 2, d), coeff (under a mesh
+        shard.fold_sharded: this rank's rows, then the replicated tail)."""
+        if self.mesh is not None:
+            return shard.fold_sharded(cts_coeff, q_pos, q_neg, self.params,
+                                      self._group, self._fold_g)
         return fold_ciphertexts(cts_coeff, q_pos, q_neg, self.params,
                                 g_buf=self._fold_g)
 
@@ -270,7 +315,8 @@ class SpiralServer:
 
     def _survivors(self, query: Query, mark=no_mark) -> torch.Tensor:
         """The stages of one query up to the fold, `mark` called after
-        each: the folded ct, coefficient domain."""
+        each (first dim and fold one stage under a mesh): the folded ct,
+        coefficient domain."""
         first_b, gsw_b = self.query_scalars_batch([query])
         mark()
         C_reg = self.compose(first_b[0])
@@ -278,7 +324,8 @@ class SpiralServer:
         q_pos, q_neg = self.convert(gsw_b[0])
         mark()
         cts = self.first_dim(C_reg)
-        mark()
+        if self.mesh is None:
+            mark()
         final = self.fold(cts, q_pos, q_neg)
         mark()
         return final
@@ -305,7 +352,7 @@ class SpiralServer:
         direct queries, the time falling into its composition."""
         clock = StageClock(self.device)
         rows = self._run_single(query, clock.mark)
-        return self._response(*rows), _timings(clock)
+        return self._response(*rows), _timings(clock, self.mesh is not None)
 
     def process_query_fused(self, query: Query):
         """The serving path: (Response, seconds), the seconds of a second
@@ -316,8 +363,13 @@ class SpiralServer:
         """Answer a batch of queries of one form: (list[Response], seconds),
         the window from the first stage until the response rows are on the
         host (the JAX process_query_batch's).  The stage times of the batch
-        are left in ``last_batch_timings``; a mixed batch raises
-        ValueError."""
+        are left in ``last_batch_timings``.  A mixed batch raises
+        ValueError, and so does a sharded batch over an implicit database
+        (the JAX mesh server's batch multiplies the slab once and raises a
+        TypeError there)."""
+        if self.mesh is not None and isinstance(self.db, ImplicitDb):
+            raise ValueError("a sharded batch over an implicit database is "
+                             "not supported")
         t0 = time.perf_counter()
         clock = StageClock(self.device)
         first_b, gsw_b = self.query_scalars_batch(queries)
@@ -327,20 +379,24 @@ class SpiralServer:
         q_pos_b, q_neg_b = self.convert(gsw_b)
         clock.mark()
         cts_b = self.first_dim_batch(C_reg_b)
-        clock.mark()
+        if self.mesh is None:
+            clock.mark()
         finals = self.fold_batch(cts_b, q_pos_b, q_neg_b)
         clock.mark()
         first, rest = modswitch_device(finals, self.params)
         clock.mark()
         responses = responses_from_device_rows(first, rest)
         seconds = time.perf_counter() - t0
-        self.last_batch_timings = _timings(clock)
+        self.last_batch_timings = _timings(clock, self.mesh is not None)
         return responses, seconds
 
 
-def _timings(clock: StageClock) -> ServerTimings:
-    """The six Spiral stage intervals of a StageClock."""
+def _timings(clock: StageClock, sharded: bool = False) -> ServerTimings:
+    """The six Spiral stage intervals of a StageClock, or its five where
+    first dim and fold were one sharded stage (folding_us 0)."""
     t = clock.intervals_us()
+    if sharded:
+        t.insert(4, 0.0)
     return ServerTimings(expansion_us=t[0], composition_us=t[1],
                          conversion_us=t[2], first_multiply_us=t[3],
                          folding_us=t[4], modswitch_us=t[5])

@@ -13,6 +13,8 @@ rounds pair adjacent ciphertexts.
 
 An ``ImplicitDb`` (the implicit huge-database mode) holds one random slab
 in the same layout, streamed num_chunks times by the first-dim multiply.
+A ``ShardedDb`` holds one rank's column block of a row-sharded database
+(dist/), the columns of its row positions.
 """
 from __future__ import annotations
 
@@ -33,6 +35,18 @@ BLOCK_POLYS = 32768
 class EncodedDb:
     data: torch.Tensor    # (2, d, dim0*n0, num_per*n2) int32, NTT domain
     params: Params
+
+
+@dataclasses.dataclass
+class ShardedDb:
+    """One rank's share of a row-sharded database (counterpart of
+    spiral_tpu/server/db.py ShardedLimbsDb): the contiguous (2, d, K,
+    rows_local*n2) block of K2's layout holding row positions [r0, r1)
+    (dist/multihost.py host_row_range), built by each rank from its own
+    records (multihost.assemble_global_db); the mesh it is sharded over."""
+    data: torch.Tensor    # (2, d, dim0*n0, rows_local*n2) int32, NTT domain
+    params: Params
+    mesh: object          # torch.distributed.device_mesh.DeviceMesh
 
 
 @dataclasses.dataclass
@@ -114,30 +128,46 @@ def random_db(params: Params, rng: np.random.Generator) -> np.ndarray:
         dtype=np.int64)
 
 
-def encode_db(pts: np.ndarray, params: Params, device,
-              out: torch.Tensor | None = None) -> EncodedDb:
-    """Center mod p_db, lift, NTT on `device`, and write the K2 layout,
-    one block of first-dimension rows at a time (a block uploads as int16
-    when p_db allows).  `out`, a (2, d, K, num_per*n2) view on `device`,
-    takes the encoding in place of a new tensor (a factored database's
-    column block)."""
+def encode_rows(pts_rows: np.ndarray, params: Params, device,
+                perm: torch.Tensor | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Host plaintexts (dim0, rows, n0, n2, d) -> K2's layout (2, d,
+    dim0*n0, rows*n2): centred mod p_db, lifted and NTT'd on `device`, one
+    block of first-dimension indices at a time (a block uploads as int16
+    when p_db allows).  Row position pos holds pts_rows[:, perm[pos]], or
+    pts_rows[:, pos] without `perm`.  `out`, a view of that shape on
+    `device`, takes the encoding in place of a new tensor."""
     p_db, d = params.p_db, params.poly_len
-    num_per, dim0, n0, n2 = params.num_per, params.dim0, params.n0, params.n2
+    dim0, rows, n0, n2 = pts_rows.shape[:4]
     small = np.int16 if p_db <= (1 << 15) else np.int32
-    perm = torch.from_numpy(bitrev_perm(num_per)).to(device)
-    shape = (2, d, dim0 * n0, num_per * n2)
+    shape = (2, d, dim0 * n0, rows * n2)
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=device)
     elif tuple(out.shape) != shape:
         raise ValueError(f"encode_db out {tuple(out.shape)}, want {shape}")
-    jb = max(1, min(dim0, BLOCK_POLYS // (num_per * n0 * n2)))
+    jb = max(1, min(dim0, BLOCK_POLYS // (rows * n0 * n2)))
     for j0 in range(0, dim0, jb):
         j1 = min(dim0, j0 + jb)
-        block = pts[j0 * num_per:j1 * num_per]
+        block = pts_rows[j0:j1].reshape((j1 - j0) * rows, n0, n2, d)
         centered = np.where(block >= p_db // 2, block - p_db, block)
         c = torch.from_numpy(centered.astype(small)).to(device).long()
-        t = ntt.forward(residues_from_values(c))   # (nb*num_per, n0, n2, 2, d)
-        t = t.reshape(j1 - j0, num_per, n0, n2, 2, d)[:, perm]
+        t = ntt.forward(residues_from_values(c))   # (nb*rows, n0, n2, 2, d)
+        t = t.reshape(j1 - j0, rows, n0, n2, 2, d)
+        if perm is not None:
+            t = t[:, perm]
         out[:, :, j0 * n0:j1 * n0] = t.permute(4, 5, 0, 2, 1, 3).reshape(
-            2, d, (j1 - j0) * n0, num_per * n2)
-    return EncodedDb(data=out, params=params)
+            2, d, (j1 - j0) * n0, rows * n2)
+    return out
+
+
+def encode_db(pts: np.ndarray, params: Params, device,
+              out: torch.Tensor | None = None) -> EncodedDb:
+    """Center mod p_db, lift, NTT on `device`, and write the K2 layout
+    (encode_rows), further index ii at row position bitrev(ii).  `out`, a
+    (2, d, K, num_per*n2) view on `device`, takes the encoding in place of
+    a new tensor (a factored database's column block)."""
+    p = params
+    perm = torch.from_numpy(bitrev_perm(p.num_per)).to(device)
+    rows = pts.reshape(p.dim0, p.num_per, p.n0, p.n2, p.poly_len)
+    return EncodedDb(data=encode_rows(rows, p, device, perm, out),
+                     params=params)

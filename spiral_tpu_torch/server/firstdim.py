@@ -127,9 +127,15 @@ def multiply_limbs_plain(db: torch.Tensor, query_k_b: torch.Tensor,
 
 
 def multiply_query_by_db_batch(db: torch.Tensor, query_k_b: torch.Tensor,
-                               num_chunks: int = 1) -> torch.Tensor:
+                               num_chunks: int = 1,
+                               first_chunk: int = 0) -> torch.Tensor:
     """db (2, d, K, m), query_k_b (B, K, n1, 2, d) -> (2, d, B, n1,
-    num_chunks*m)."""
+    num_chunks*m): chunks first_chunk .. first_chunk + num_chunks - 1 of an
+    implicit slab (a rank's share of the chunks under a mesh).  The query
+    is rolled first_chunk slots here, and chunk i rolls it i more (rolls
+    add), so the kernel needs no chunk offset."""
+    if first_chunk:
+        query_k_b = torch.roll(query_k_b, first_chunk, dims=-1)
     if kernels.on_cpu(db, query_k_b):
         return multiply_batch_plain(db, query_k_b, num_chunks)
     crt, d, K, m = db.shape

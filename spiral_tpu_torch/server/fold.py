@@ -440,11 +440,17 @@ def fold_round_batch(cts: torch.Tensor, q_neg: torch.Tensor,
 
 
 def fold_rounds_batch(cts_b: torch.Tensor, q_pos_b: torch.Tensor,
-                      q_neg_b: torch.Tensor, params: Params) -> torch.Tensor:
+                      q_neg_b: torch.Tensor, params: Params,
+                      start_round: int = 0,
+                      num_rounds: int | None = None) -> torch.Tensor:
     """fold_rounds over a batch: cts_b (B, m, n1, n2, 2, d) coeff,
-    q_pos_b/q_neg_b (B, nu_2, n1, m2, 2, d) NTT -> the (B, 1, n1, n2, 2, d)
-    survivors, each query folded against its own q."""
-    for r in range(cts_b.shape[1].bit_length() - 1):
+    q_pos_b/q_neg_b (B, nu_2, n1, m2, 2, d) NTT; `num_rounds` rounds (all
+    remaining if None) from global round `start_round`, each query folded
+    against its own q -> (B, m / 2^rounds, n1, n2, 2, d), the (B, 1, n1,
+    n2, 2, d) survivors when every round runs."""
+    rounds = cts_b.shape[1].bit_length() - 1
+    rounds = rounds if num_rounds is None else num_rounds
+    for r in range(start_round, start_round + rounds):
         cts_b = fold_round_batch(cts_b.contiguous(),
                                  q_neg_b[:, r].contiguous(),
                                  q_pos_b[:, r].contiguous(), params.t_gsw)

@@ -32,4 +32,5 @@ def test_port_imports_without_jax():
     assert {f"spiral_tpu_torch.{m}" for m in
             ("native", "serialize", "factored", "profiling", "bench",
              "harness", "paramgen.search", "select_params", "run_scheme",
-             "output_params")} <= set(names)
+             "output_params", "dist.shard", "dist.multihost",
+             "graft_entry")} <= set(names)
