@@ -111,6 +111,22 @@ Phases, each printing its own lines and its wall time:
      servers'); graft_entry's step and dryrun_multichip(1); harness dist
      --devices 1 (one row, correct).  The card has no peer here, so no
      multi-card time is measured.
+Phases 4-8 also check the served path as CUDA graphs (graphs.py,
+check_graph_serving) at spiral_20_256, spiralpack_20_256, spiral_24_256
+implicit, spiralstream_20_256, spiralstreampack_20_256 and the factored
+x 13: the graph-served rows equal the eager process_query rows bit for
+bit; 8 distinct queries enqueued back to back through _run_single and
+fetched at the end each decode to their own record (implicit: each
+equals its eager rows); a warm served query makes no host sync in its
+enqueue and, in a torch.profiler trace, one cudaGraphLaunch and no kernel
+launch; a batch of 8 replayed twice equals its eager run (not factored,
+whose served tail graph is timed in process_query_fused).  Each prints
+the served and pipelined seconds eager and as a graph, the device's busy
+share of each, and the capture seconds and pool bytes of each graph; the
+line "graphs {...}" before the kernels' JSON holds them all.  Since the
+servers serve through graphs, the served, batch and pipelined runs of
+phases 4-11 replay graphs; process_query stays the eager CUDA-event
+split, and the mesh servers of phase 11 serve eagerly.
 Phases 4, 5 and 7 also send one query of each full preset over the wire
 (serialize.py: query bytes -> process_query_fused -> response bytes ->
 decode, equal to its process_query rows), count the host syncs torch
@@ -118,7 +134,8 @@ reports inside the fused path's enqueue, rebuild the server from the
 public parameters' bytes, and at spiral_20_256 check final_ciphertext and
 round-trip the 2 GiB encoded database through save_db / load_db.
 Each driven path counts launches from 0 and fails if a kernel of the path
-was never launched.  The line before last is the kernels' JSON, the last
+was never launched; a graph replay counts each kernel its capture
+recorded (a capture itself launches nothing).  The line before last is the kernels' JSON, the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero.
 """
 from __future__ import annotations
@@ -269,6 +286,12 @@ DIST_FOLD_PATH = ("ntt", "firstdim", "fold")
 # those launches
 GRAPH_BELOW_MS = 0.1
 TIMINGS = 3
+# the served path as CUDA graphs (check_graph_serving): distinct queries
+# enqueued back to back (bench.py's K), and the served runs timed in turns
+GRAPH_QUERIES = 8
+SERVED_RUNS = 3
+# each path's served numbers (check_graph_serving), printed before the end
+GRAPHS: dict[str, dict] = {}
 
 
 def card_line() -> str:
@@ -1175,6 +1198,10 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
                              f"equal to its single query's={same}")
     print(f"{name} batch: all {len(qs)} answers decode to their records "
           f"and equal their single-query rows (indices {bidx})", flush=True)
+    GRAPHS[name] = check_graph_serving(
+        name, server, qs, lambda i, rows: np.array_equal(
+            client.decode(server._response(*rows)),
+            pts[bidx[i]].astype(object)), card)
     paths, per_q = {name: launches, f"{name} batch": batch}, \
         {name: per_query}
     if not pack:
@@ -1186,6 +1213,181 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
         name, client, server, pub, pts, int(rng.integers(0, params.total_n)),
         pack, path, path_not, card)
     return paths, per_q
+
+
+def device_busy_us(prof) -> float:
+    """The device's busy microseconds in a torch.profiler trace: the union
+    of the intervals of its device-side events (kernels, copies, sets).
+    Summing the key averages' self device time would count a kernel twice
+    where a CPU op launched it: once on the op, once as the kernel."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
+def served_calls(run) -> tuple[dict, float]:
+    """run() once more under torch.profiler after a warm run: its CUDA
+    launch calls by name (cudaGraphLaunch, and any *LaunchKernel*) and
+    the device's busy time (device_busy_us, 0 where the trace holds
+    none)."""
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if "LaunchKernel" in e.key or "GraphLaunch" in e.key}
+    return calls, device_busy_us(prof)
+
+
+def host_s(run) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    return time.perf_counter() - t0
+
+
+def check_graph_serving(tag: str, server, queries: list, check,
+                        card: str, batch: bool = True) -> dict:
+    """The served path of `server` as CUDA graphs (graphs.py), each check
+    failing the run: the graph-served rows of queries[0] equal its eager
+    process_query rows bit for bit; GRAPH_QUERIES distinct queries
+    enqueued back to back through _run_single and fetched at the end each
+    pass check(index, rows); a warm served query makes no host sync in its
+    enqueue (count_syncs) and, in a torch.profiler trace, one
+    cudaGraphLaunch and no kernel launch; with `batch`, a batch of
+    GRAPH_QUERIES replayed twice equals its eager run.  Prints the served
+    seconds eager and as a graph (host clock until the rows are on the
+    host, SERVED_RUNS each in turns), pipelined seconds a query both ways,
+    the device's busy share of each (the device time of one traced run,
+    device_busy_us, over the least untraced served seconds), and each
+    graph's capture seconds and pool bytes.  Returns those numbers."""
+    from spiral_tpu_torch.crypto.decode import responses_from_device_rows
+
+    q = queries[0]
+    direct = q.packed_b is None
+    want, _ = server.process_query(q)
+    served = server._response(*server._run_single(q))
+    same = same_rows(served, want) if not isinstance(want, list) else all(
+        same_rows(a, b) for a, b in zip(served, want))
+    if not same:
+        raise SystemExit(f"{tag} graph: served rows differ from the eager "
+                         f"process_query rows")
+
+    def fetch(rows):
+        return [x.cpu() for x in rows]
+
+    eager_s, graph_s = [], []
+    for turn in range(SERVED_RUNS):
+        runs = [(eager_s, server._run_eager), (graph_s, server._run_single)]
+        for times, serve in runs[::1 - 2 * (turn % 2)]:
+            times.append(host_s(lambda: fetch(serve(q))))
+    fused_s = server.process_query_fused(q)[1]
+
+    def pipelined(serve):
+        outs = [serve(x) for x in queries]
+        return [fetch(rows) for rows in outs]
+
+    outs = pipelined(server._run_single)
+    bad = [i for i, rows in enumerate(outs) if not check(i, rows)]
+    if bad:
+        raise SystemExit(f"{tag} graph: pipelined queries {bad} did not get "
+                         f"their own rows")
+    pipe_eager = host_s(lambda: pipelined(server._run_eager)) / len(queries)
+    pipe_graph = host_s(lambda: pipelined(server._run_single)) / len(queries)
+    syncs = count_syncs(lambda: server._run_single(q))
+    calls, kernel_us = served_calls(lambda: fetch(server._run_single(q)))
+    eager_calls, kernel_eager_us = served_calls(
+        lambda: fetch(server._run_eager(q)))
+
+    def count(c, what):
+        return sum(v for k, v in c.items() if what in k)
+
+    # the eager run's kernel launches show that the trace sees launch calls
+    if syncs or count(calls, "LaunchKernel") or \
+            count(calls, "GraphLaunch") != 1 or \
+            not count(eager_calls, "LaunchKernel"):
+        raise SystemExit(f"{tag} graph: a warm served query made host syncs "
+                         f"{syncs} and launch calls {calls} (eager: "
+                         f"{eager_calls})")
+    g, e = min(graph_s), min(eager_s)
+
+    def busy(us, s):
+        return round(us / (s * 1e6), 3) if us else "not measured"
+
+    stats = server.graphs.stats()
+    single = stats[("single", direct, 1)]
+    out = {"served_eager_ms": e * 1e3, "served_graph_ms": g * 1e3,
+           "served_eager_max_ms": max(eager_s) * 1e3,
+           "served_graph_max_ms": max(graph_s) * 1e3,
+           "fused_ms": fused_s * 1e3, "pipelined_eager_ms": pipe_eager * 1e3,
+           "pipelined_graph_ms": pipe_graph * 1e3,
+           "busy_eager": busy(kernel_eager_us, e), "busy_graph":
+           busy(kernel_us, g), "device_us_eager": kernel_eager_us,
+           "device_us_graph": kernel_us,
+           "capture_s": single["capture_s"],
+           "pool_bytes": single["pool_bytes"]}
+    print(f"{tag} graph: served rows equal process_query's; "
+          f"{len(queries)} pipelined distinct queries each correct; 0 host "
+          f"syncs; trace of a served query: {calls} (eager: "
+          f"{eager_calls}); served eager "
+          f"{e * 1e3:.3f}-{max(eager_s) * 1e3:.3f} ms / graph "
+          f"{g * 1e3:.3f}-{max(graph_s) * 1e3:.3f} ms (host clock until the "
+          f"rows are on the host, {SERVED_RUNS} each in turns; "
+          f"process_query_fused {fused_s * 1e3:.3f} ms), pipelined eager "
+          f"{pipe_eager * 1e3:.3f} / graph {pipe_graph * 1e3:.3f} ms a query; "
+          f"device busy eager {out['busy_eager']} / graph "
+          f"{out['busy_graph']} (device time of a traced run "
+          f"{kernel_eager_us:.1f} / {kernel_us:.1f} us); capture {single['capture_s']:.3f} s, pool "
+          f"+{single['pool_bytes'] / 2**20:.1f} MiB, warm run "
+          f"{single['warm_s']:.3f} s [{card}]", flush=True)
+    if batch:
+        # the eager batch in process_query_batch's window: its stages, then
+        # the rows to the host as Responses
+        def eager_batch():
+            return responses_from_device_rows(*server._run_batch(queries))
+
+        want_b = eager_batch()
+        b_eager, runs = [], []
+        for _ in range(2):
+            b_eager.append(host_s(eager_batch))
+            runs.append(server.process_query_batch(queries))
+        if not all(same_rows(a, b) for resps, _ in runs
+                   for a, b in zip(resps, want_b)):
+            raise SystemExit(f"{tag} graph: a replayed batch differs from "
+                             f"its eager run")
+        _, kb_eager = served_calls(eager_batch)
+        _, kb_graph = served_calls(
+            lambda: server.process_query_batch(queries))
+        bstats = server.graphs.stats()[("batch", direct, len(queries))]
+        b_graph = [s for _, s in runs]
+        out.update(batch_eager_ms=min(b_eager) * 1e3,
+                   batch_graph_ms=min(b_graph) * 1e3,
+                   batch_device_eager_us=kb_eager,
+                   batch_device_graph_us=kb_graph,
+                   batch_capture_s=bstats["capture_s"],
+                   batch_pool_bytes=bstats["pool_bytes"])
+        print(f"{tag} graph batch of {len(queries)}: two replays equal the "
+              f"eager run; eager {min(b_eager) * 1e3:.3f}-"
+              f"{max(b_eager) * 1e3:.3f} ms / graph {min(b_graph) * 1e3:.3f}-"
+              f"{max(b_graph) * 1e3:.3f} ms (host clock until the responses "
+              f"are on the host, 2 each in turns); device time of a "
+              f"traced run {kb_eager:.1f} / {kb_graph:.1f} us; capture "
+              f"{bstats['capture_s']:.3f} s, pool "
+              f"+{bstats['pool_bytes'] / 2**20:.1f} MiB [{card}]", flush=True)
+    pool = sum(s["pool_bytes"] for s in server.graphs.stats().values())
+    out["pool_total_bytes"] = pool
+    print(f"{tag} graph pool: {len(server.graphs.programs)} graphs, "
+          f"{pool / 2**20:.1f} MiB in all [{card}]", flush=True)
+    return out
 
 
 def count_syncs(run) -> list[str]:
@@ -1340,7 +1542,10 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
     params = preset(name)
     rng = np.random.default_rng(seed)
     idxs = [0, params.total_n - 1, int(rng.integers(0, params.total_n))]
-    kept = {i: [] for i in idxs}
+    # the served path's distinct queries: these three and random ones
+    gidx = idxs + [int(i) for i in rng.integers(0, params.total_n,
+                                                GRAPH_QUERIES - len(idxs))]
+    kept = {i: [] for i in gidx}
     draw = [0.0]
 
     def sub_dbs():
@@ -1348,7 +1553,7 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
             t = time.perf_counter()
             pts = random_db(params, rng)
             draw[0] += time.perf_counter() - t
-            for i in idxs:
+            for i in kept:
                 kept[i].append(pts[i])
             yield pts
 
@@ -1370,7 +1575,7 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
           flush=True)
 
     kernels.reset_launches()
-    for idx in idxs:
+    for n, idx in enumerate(idxs):
         q = client.query(idx)
         want = np.stack(kept[idx]).astype(object)
         torch.cuda.synchronize()
@@ -1397,14 +1602,30 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
         if not (ok and fok and same):
             raise SystemExit(f"{name} factored query {idx}: decodes={ok}, "
                              f"fused decodes={fok}, rows equal={same}")
-        if per_query["firstdim"] != 1 or fused_launches["firstdim"] != 2:
+        # the fused path's two runs, and on its first call the eager run
+        # before its tail's capture
+        if per_query["firstdim"] != 1 or \
+                fused_launches["firstdim"] != 2 + (n == 0):
             raise SystemExit(f"{name} factored: K2 launched "
-                             f"{per_query['firstdim']} times in a query")
+                             f"{per_query['firstdim']} times in a query, "
+                             f"{fused_launches['firstdim']} in the fused "
+                             f"path's")
     launches = dict(kernels.LAUNCHES)
     print(f"{name} factored launches over the path: {launches}", flush=True)
     if not all(launches[k] for k in SPIRAL_PATH):
         raise SystemExit(f"{name} factored: a kernel of the path was never "
                          f"launched")
+    tail = server.graphs.stats()[("tail", False, 1)]
+    print(f"{name} factored served tail graph: capture "
+          f"{tail['capture_s']:.3f} s, pool +{tail['pool_bytes'] / 2**20:.1f} "
+          f"MiB, warm run {tail['warm_s']:.3f} s [{card}]", flush=True)
+    GRAPHS[f"{name} factored"] = check_graph_serving(
+        f"{name} factored x{factor}", server,
+        [client.query(i) for i in gidx], lambda i, rows: np.array_equal(
+            decode_factored(client, server._response(*rows)),
+            np.stack(kept[gidx[i]]).astype(object)), card, batch=False)
+    GRAPHS[f"{name} factored"].update(
+        tail_capture_s=tail["capture_s"], tail_pool_bytes=tail["pool_bytes"])
     print_syncs(f"{name} factored process_query_fused",
                 count_syncs(lambda: server._run_single(q)))
 
@@ -1509,6 +1730,11 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
                          f"{bidx[0]} differ from its single run's")
     print(f"{name} implicit: the batch's rows for idx={bidx[0]} equal the "
           f"single run's", flush=True)
+    # the slab is random: each query's served rows must equal its eager rows
+    eager = [[x.cpu() for x in server._run_eager(q)] for q in qs]
+    GRAPHS[f"{name} implicit"] = check_graph_serving(
+        f"{name} implicit", server, qs, lambda i, rows: all(
+            torch.equal(a, b) for a, b in zip(rows, eager[i])), card)
     forced, forced_q = run_fold_forced(f"{name} implicit", server,
                                        [(bidx[0], qs[0], resp)], card)
     return ({f"{name} implicit": single, f"{name} implicit batch": batch,
@@ -1541,6 +1767,12 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
     idx = int(rng.integers(0, params.total_n))
     q = client.query(idx)
     before, _ = server.process_query(q)
+    server.process_query_fused(q)
+    single = server.graphs.stats()[("single", False, 1)]
+    print(f"{name} served graph captured first on a fresh server: capture "
+          f"{single['capture_s']:.3f} s, pool "
+          f"+{single['pool_bytes'] / 2**20:.1f} MiB, warm run "
+          f"{single['warm_s']:.3f} s [{card}]", flush=True)
     graph = profiling.device_stage_times(server, q)
     after, _ = server.process_query(q)
     events = [server.process_query(q)[1] for _ in range(MEASURE_RUNS)]
@@ -1571,8 +1803,9 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
         raise SystemExit(f"{name}: the stage sum {stage_sum} us is not "
                          f"fused_total_us {total}")
     # the device's busy share of the served path from a profiler trace:
-    # kernel time (torch.profiler, CUPTI) over host seconds of
-    # MEASURE_RUNS served queries, each fetched to the host
+    # device time (torch.profiler, CUPTI: device_busy_us) over the host
+    # seconds of MEASURE_RUNS traced served queries, each fetched to the
+    # host (the trace's own host overhead is in those seconds)
     [x.cpu() for x in server._run_single(q)]
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -1581,12 +1814,11 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
         for _ in range(MEASURE_RUNS):
             [x.cpu() for x in server._run_single(q)]
         wall = (time.perf_counter() - t0) / MEASURE_RUNS
-    kernel = sum(e.self_device_time_total
-                 for e in prof.key_averages()) / MEASURE_RUNS
+    kernel = device_busy_us(prof) / MEASURE_RUNS
     busy = (f"busy {kernel / (wall * 1e6):.3f}, idle "
             f"{1 - kernel / (wall * 1e6):.3f}" if kernel else
             "not measured (the trace holds no device time)")
-    print(f"  profiler trace of {MEASURE_RUNS} served queries: kernel time "
+    print(f"  profiler trace of {MEASURE_RUNS} served queries: device time "
           f"{kernel:.1f} us a query (graph prefixes {total}) in "
           f"{wall * 1e6:.1f} us of host time: device {busy} [{card}]",
           flush=True)
@@ -2186,6 +2418,7 @@ def main() -> int:
     fc = next(r for r in out if r["name"] == "fold_contract")
     fc["library_probe"] = probe      # why library_ms is null
     fc["fold_rounds_k3_vs_k8b"] = fold_rounds
+    print(f"graphs {json.dumps(GRAPHS)}", flush=True)
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

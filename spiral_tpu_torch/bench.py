@@ -1,7 +1,7 @@
 """Benchmark of the port (counterpart of the top-level bench.py): runs the
 server pipeline and prints one JSON line {"metric", "value", "unit",
-"vs_baseline", "detail"} with bench.py's keys and one more,
-detail.stage_basis.
+"vs_baseline", "detail"} with bench.py's keys and two more,
+detail.stage_basis and detail.serving.
 
     python -m spiral_tpu_torch.bench [--preset spiral_20_256] [--trials 3]
         [--batch B] [--implicit] [--slab-bytes N] [--nonoise] [--verbose]
@@ -22,6 +22,9 @@ detail.stage_basis names the stage fields' basis: "cuda_graph_prefixes"
 card) or "host_clock" (a CPU run).  A direct (stream) query's
 reconstruction is timed in expansion_us, where bench.py's JAX server
 counts it in composition_us; stage_basis says so for such a query.
+detail.serving names how the served, pipelined and batch times were
+served (the server's ``serving``): "cuda_graph" (one CUDA-graph replay a
+query or batch) or "eager" (a CPU run).
 
 Runs on the card unless --device cpu.  Exits 1 when a decode is wrong.
 """
@@ -135,7 +138,8 @@ def run_batch(args, params, client, server, pts, rng, log) -> tuple[dict,
                    "batch_seconds": round(best_s, 4),
                    "queries_per_s": round(args.batch / best_s, 2),
                    "query_bytes": queries[0].size_bytes,
-                   "response_bytes": params.response_size_bytes()},
+                   "response_bytes": params.response_size_bytes(),
+                   "serving": server.serving},
     }, 0 if correct is not False else 1
 
 
@@ -251,6 +255,7 @@ def run_single(args, params, pack, client, server, pts, rng,
             **batch_detail,
             **stages,
             "stage_basis": basis,
+            "serving": server.serving,
             "query_bytes": query.size_bytes,
             "response_bytes": params.response_size_bytes(),
         },

@@ -15,7 +15,10 @@ nu_2 rounds leave each sub-database's survivor.  The modulus switch runs
 once over the F survivors.  Expansion, composition and conversion are a
 SpiralServer's, run once per query; process_query_fused runs them before
 its clock starts and times first dim + fold + modswitch, as the JAX
-server's does.
+server's does (spiral_tpu/factored.py:82-85, 132-147): on a CUDA server
+that tail is one replay of its CUDA graph, the query stages' outputs
+staged into the graph's static inputs (graphs.py's GraphRunner).
+_run_single serves the whole query as SpiralServer's does.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from .params import Params
 from .crypto.decode import modswitch_device, responses_from_device_rows
+from .graphs import Staged, no_mark
 from .pir import SpiralClient, SpiralServer
 from .server.db import EncodedDb, encode_db
 from .server.fold import fold_rounds
@@ -58,6 +62,9 @@ def encode_factored_db(pts: np.ndarray | Iterable[np.ndarray],
     return EncodedDb(data=data, params=params)
 
 
+TAIL_STAGES = ("first_multiply", "folding", "modswitch")
+
+
 class FactoredSpiralServer(SpiralServer):
     """A SpiralServer over a factored database: process_query gives
     (list of F Responses, ServerTimings), process_query_fused (list of F
@@ -84,18 +91,32 @@ class FactoredSpiralServer(SpiralServer):
 
     _response = staticmethod(responses_from_device_rows)
 
+    def _tail(self, C_reg, q_pos, q_neg, mark=no_mark):
+        """First dim, fold and modulus switch of one query, `mark` called
+        after each: the F survivors' rows on the device."""
+        cts = self.first_dim(C_reg)
+        mark()
+        final = self.fold(cts, q_pos, q_neg)
+        mark()
+        rows = modswitch_device(final, self.params)
+        mark()
+        return rows
+
     def process_query_fused(self, query):
         """The serving path (spiral_tpu/factored.py:132-147): expansion,
         composition and conversion first, untimed; then first dim, fold and
-        modulus switch once warm and once timed on the host clock until the
-        rows are on the host.  -> (list of F Responses, seconds)."""
+        modulus switch (on a CUDA server one replay of the tail's graph,
+        captured on first use) once warm and once timed on the host clock
+        from the staging of its inputs until the rows are on the host.
+        -> (list of F Responses, seconds)."""
         first_b, gsw_b = self.query_scalars_batch([query])
         C_reg = self.compose(first_b[0])
         q_pos, q_neg = self.convert(gsw_b[0])
+        sources = [Staged.whole(t) for t in (C_reg, q_pos, q_neg)]
 
         def tail():
-            return [x.cpu() for x in modswitch_device(
-                self.fold(self.first_dim(C_reg), q_pos, q_neg), self.params)]
+            return [x.cpu() for x in self.graphs.run(
+                ("tail", False, 1), self._tail, sources, TAIL_STAGES)]
 
         tail()
         t0 = time.perf_counter()

@@ -9,18 +9,23 @@ PackServer.process_query runs: expansion (K1, K8a, K4), conversion to GSW
 (``regev_to_simple_gsw``), the first-dimension multiply with n1 = 2 query
 rows (K2) and its inverse NTT, the unsigned fold rounds (K6), packing (K7)
 and its inverse NTT, and the modulus switch.  On a CUDA device each stage
-is timed with CUDA events; process_query_fused runs them untimed, back to
-back (pir.serve_fused).  process_query_batch runs them over a batch
-(the JAX ``full_packed_batch``): K2 streams the database once for all
-queries, the fold is one K5 launch per round and K7 one launch.  The
-server takes an EncodedDb or an ImplicitDb (served one query at a time,
-as in the JAX package).  With ``mesh`` (dist/shard.py) an encoded
-database is row-sharded over its (trial, position) columns: each rank
-keeps only its column block (a ShardedDb) and streams it through K2, the
-K2 outputs are gathered along the column axis, and fold (K6) and pack
-(K7) run replicated on every rank (spiral_tpu/pack.py:328-363, 409-425);
-an implicit database with a mesh raises ValueError, as in the JAX
-package.
+is timed with CUDA events.  _run_single serves a query as pir.py's
+servers do: on a CUDA server one replay of a CUDA graph of the whole chain
+(the JAX ``_run_single`` chains its stage jits with no sync,
+spiral_tpu/pack.py:604-625), captured on first use per query form; on the
+CPU the same staged runner, eagerly.  process_query_fused times it
+(pir.serve_fused).  process_query_batch serves a batch (the JAX
+``full_packed_batch``, pack.py:501-536) with one replay of the graph for
+(form, B): K2 streams the database once for all queries, the fold is one
+K5 launch per round and K7 one launch.  The server takes an EncodedDb or
+an ImplicitDb (served one query at a time, as in the JAX package).  With
+``mesh`` (dist/shard.py) an encoded database is row-sharded over its
+(trial, position) columns: each rank keeps only its column block (a
+ShardedDb) and streams it through K2, the K2 outputs are gathered along
+the column axis, and fold (K6) and pack (K7) run replicated on every rank
+(spiral_tpu/pack.py:328-363, 409-425), eagerly (its collectives are not
+captured); an implicit database with a mesh raises ValueError, as in the
+JAX package.
 
 Where ``direct_upload_first`` holds (SpiralStreamPack) the client uploads
 every ct directly: dim0 first-dimension scalars, then for each GSW digit
@@ -31,7 +36,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 
 import numpy as np
 import torch
@@ -42,8 +46,7 @@ from .arith.crt import const_residues, residues_from_values
 from .core.gadget import build_gadget, gadget_invert_raw
 from .core.poly import matmul_raw, scalar_mul_raw, sub_raw
 from .crypto.decode import (Response, decode_response, modswitch_device,
-                            response_from_device_rows,
-                            responses_from_device_rows)
+                            response_from_device_rows)
 from .crypto.encrypt import Encryptor
 from .crypto.keys import SecretKeys, keygen
 from .crypto.publicparams import (expansion_keyswitch_matrices,
@@ -52,14 +55,19 @@ from .crypto.query import (Query, encrypt_b_batch, gsw_digit_values,
                            new_seed, packed_query, reconstruct_cts,
                            sigmas_ntt)
 from .dist import shard
-from .pir import (ServerTimings, StageClock, db_tensor, no_mark,
-                  serve_fused, stack_queries)
+from .graphs import GraphRunner, no_mark
+from .pir import (ServerTimings, StageClock, db_tensor, serve_batch,
+                  serve_fused, serve_single, stack_queries)
 from .server import db as db_mod
 from .server.db import EncodedDb, ImplicitDb, bitrev_perm
 from .server.expand import coefficient_expansion, neg_monomial_ntts
 from .server.firstdim import multiply_query_by_db_batch
 from .server.fold import fold_pack_rounds, fold_pack_rounds_batch
 from .server.pack import pack_ciphertexts
+
+
+PACK_STAGES = ("expansion", "conversion", "first_multiply", "folding",
+               "packing", "modswitch")
 
 
 def pack_g_stop(params: Params) -> tuple[int, int]:
@@ -249,6 +257,18 @@ class PackServer:
         self._g_ntt = ntt.forward(build_gadget(2, 2 * params.t_gsw,
                                                params.poly_len, self.device))
         neg_monomial_ntts(params.poly_len, self.device)   # made once here
+        self.graphs = GraphRunner(self.device, type(self).__name__)
+
+    @property
+    def serving(self) -> str:
+        """"cuda_graph" (a CUDA server) or "eager" (a CPU or a mesh
+        server)."""
+        return "cuda_graph" if self.device.type == "cuda" and \
+            self.mesh is None else "eager"
+
+    def release_graphs(self) -> None:
+        """Free the server's CUDA graphs and their pool."""
+        self.graphs.release()
 
     # -- stages (spiral_tpu/pack.py PackServer._build_stages); the *_batch
     # forms, convert and pack take and give a leading query axis --
@@ -301,7 +321,13 @@ class PackServer:
         1, 2, d) and q_pos, q_neg (B, nu_2, 2, 2*t_gsw, 2, d).  A direct
         batch's reconstruction is its expansion stage, conv_direct its
         conversion."""
-        seeds, bs, direct = stack_queries(queries, self.device)
+        return self._query_stages(*stack_queries(queries, self.device),
+                                  mark)
+
+    def _query_stages(self, seeds, bs: torch.Tensor, direct: bool,
+                      mark=no_mark):
+        """query_stages_batch on the batch's seeds (or their seed_words)
+        and b rows."""
         if direct:
             first_b, gsw_b = self.reconstruct_direct_batch(seeds, bs)
             mark()
@@ -347,11 +373,12 @@ class PackServer:
         return ntt.inverse(pack_ciphertexts(result.contiguous(),
                                             self.pub.v_W))
 
-    def _run_single(self, query: Query, mark=no_mark):
-        """Every stage of one query, enqueued, `mark` called after each:
-        the response rows on the device."""
-        first, q_pos, q_neg = (x[0] for x in self.query_stages_batch(
-            [query], mark))
+    def _rows(self, seeds, bs, direct: bool, mark=no_mark):
+        """Every stage of one query (its seeds or seed_words and b rows (1,
+        n, 1, 1, 2, d)), `mark` called after each: the response rows on
+        the device."""
+        first, q_pos, q_neg = (x[0] for x in self._query_stages(
+            seeds, bs, direct, mark))
         cts = self.first_dim(first)
         mark()
         result = self.fold(cts, q_pos, q_neg)
@@ -362,12 +389,41 @@ class PackServer:
         mark()
         return rows
 
+    def _batch_rows(self, seeds, bs, direct: bool, mark=no_mark):
+        """Every stage of a batch, `mark` called after each: its rows on
+        the device."""
+        first_b, q_pos_b, q_neg_b = self._query_stages(seeds, bs, direct,
+                                                       mark)
+        cts_b = self.first_dim_batch(first_b)
+        mark()
+        results = self.fold_batch(cts_b, q_pos_b, q_neg_b)
+        mark()
+        packed_b = self.pack(results)
+        mark()
+        rows = modswitch_device(packed_b, self.params)
+        mark()
+        return rows
+
+    def _run_eager(self, query: Query, mark=no_mark):
+        """Every stage of one query, enqueued eagerly: its rows."""
+        return self._rows(*stack_queries([query], self.device), mark)
+
+    def _run_batch(self, queries: list[Query], mark=no_mark):
+        """Every stage of a batch, enqueued eagerly: its rows."""
+        return self._batch_rows(*stack_queries(queries, self.device), mark)
+
+    def _run_single(self, query: Query):
+        """One query served (pir.serve_single): fresh response rows on the
+        device."""
+        return serve_single(self, query, PACK_STAGES)
+
     _response = staticmethod(response_from_device_rows)
 
     def process_query(self, query: Query):
-        """Answer one query of either form: (Response, ServerTimings)."""
+        """Answer one query of either form: (Response, ServerTimings), the
+        stages run eagerly between CUDA events."""
         clock = StageClock(self.device)
-        rows = self._run_single(query, clock.mark)
+        rows = self._run_eager(query, clock.mark)
         return self._response(*rows), _timings(clock)
 
     def process_query_fused(self, query: Query):
@@ -377,30 +433,17 @@ class PackServer:
 
     def process_query_batch(self, queries: list[Query]):
         """Answer a batch of queries of one form: (list[Response],
-        seconds), the window from the first stage until the response rows
-        are on the host.  The stage times are left in
+        seconds), the window from the staging of the batch (a mesh server:
+        its first stage) until the response rows are on the host; a CUDA
+        server replays the graph for (form, B), captured on first use
+        after an eager run whose stage times are left in
         ``last_batch_timings``.  Over an implicit database, or for a batch
         that mixes forms, it raises ValueError."""
         if isinstance(self.db, ImplicitDb):
             raise ValueError(
                 "batched pack serving needs an encoded database, not an "
                 "implicit one")
-        t0 = time.perf_counter()
-        clock = StageClock(self.device)
-        first_b, q_pos_b, q_neg_b = self.query_stages_batch(queries,
-                                                            clock.mark)
-        cts_b = self.first_dim_batch(first_b)
-        clock.mark()
-        results = self.fold_batch(cts_b, q_pos_b, q_neg_b)
-        clock.mark()
-        packed_b = self.pack(results)
-        clock.mark()
-        first_row, rest = modswitch_device(packed_b, self.params)
-        clock.mark()
-        responses = responses_from_device_rows(first_row, rest)
-        seconds = time.perf_counter() - t0
-        self.last_batch_timings = _timings(clock)
-        return responses, seconds
+        return serve_batch(self, queries, PACK_STAGES, _timings)
 
 
 def _timings(clock: StageClock) -> ServerTimings:

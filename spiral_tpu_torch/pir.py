@@ -14,10 +14,20 @@ the database streams once per batch (K2 with all B queries' rows) and the
 fold is one K5 launch per round.  The server takes an EncodedDb or an
 ImplicitDb, whose slab K2 streams num_chunks times.
 
-process_query_fused is the serving path (the JAX one-dispatch
-``_run_single``): the same stages enqueued back to back with no clock
-between them, timed on the host until the response rows are on the host.
-final_ciphertext stops before the modulus switch.
+_run_single is the serving path (the JAX one-dispatch ``_run_single``,
+spiral_tpu/pir.py:353-369, 444-451): on a CUDA server one replay of a
+CUDA graph of the whole pipeline, captured on the server's first call for
+the query's form (graphs.GraphRunner: the seed's key words and the b rows
+staged into its static inputs, fresh response rows cloned from its
+outputs); on a CPU server the same staged runner runs the stages
+eagerly.  process_query_fused serves a query twice through it and times
+the second run on the host until the response rows are on the host;
+process_query_batch serves a batch of B with one replay of the graph for
+(form, B) (the JAX ``full_*_batch``), after one eager run with the stage
+split when that graph is captured.  process_query (the per-stage
+CUDA-event split) and final_ciphertext, which stops before the modulus
+switch, run eagerly.  A server's graphs live as long as it does, or
+until release_graphs().
 
 With ``mesh`` (a torch.distributed DeviceMesh with a "db" dimension,
 dist/shard.py) the database is row-sharded: each rank streams its column
@@ -31,6 +41,7 @@ multihost.ingest_and_serve never holds more than the block.  An implicit
 slab is replicated instead and each rank streams its share of the
 chunks.  First dim and fold are then one stage, timed as
 first_multiply_us with folding_us 0, as the JAX mesh server reports them.
+A mesh server serves eagerly: its collectives are not captured.
 """
 from __future__ import annotations
 
@@ -50,10 +61,11 @@ from .crypto.decode import (Response, decode_response, modswitch_device,
 from .crypto.encrypt import Encryptor
 from .crypto.keys import SecretKeys, keygen
 from .crypto.publicparams import PublicParams, generate_public_params
-from .crypto.query import (Query, generate_query, query_b_rows,
-                           reconstruct_cts)
+from .crypto.query import (Query, generate_query, reconstruct_cts,
+                           seed_words)
 from .server.convert import regev_to_gsw_batch, scal_to_mat_batch
 from .dist import shard
+from .graphs import GraphRunner, Staged, no_mark, static_inputs
 from .server.db import (EncodedDb, ImplicitDb, ShardedDb, encode_db,
                         random_db)
 from .server.expand import (coefficient_expansion, neg_monomial_ntts,
@@ -134,15 +146,16 @@ class StageClock:
         return [(b - a) * 1e6 for a, b in zip(self.marks, self.marks[1:])]
 
 
-def no_mark() -> None:
-    """The stage mark of an untimed run."""
+SPIRAL_STAGES = ("expansion", "composition", "conversion", "first_multiply",
+                 "folding", "modswitch")
 
 
 def serve_fused(server, query: Query):
     """A server's process_query_fused: one warm run of
-    ``server._run_single``, then a second timed on the host clock from
-    its first stage until the response rows are on the host, every stage
-    enqueued back to back.  -> (the server's response, seconds)."""
+    ``server._run_single`` (the first for the query's form captures its
+    graph), then a second timed on the host clock from the staging of its
+    inputs until the response rows are on the host.  -> (the server's
+    response, seconds)."""
     for x in server._run_single(query):
         x.cpu()
     t0 = time.perf_counter()
@@ -157,20 +170,35 @@ def db_tensor(db: EncodedDb | ImplicitDb | ShardedDb) -> torch.Tensor:
     return db.slab if isinstance(db, ImplicitDb) else db.data
 
 
-def stack_queries(queries: list[Query], device) -> tuple[list[int],
-                                                         torch.Tensor, bool]:
-    """The batch's seeds, its b rows (B, n, 1, 1, 2, d) on `device` and
-    whether they are of the direct form (query_b_rows: n = 1 for the
-    packed form).  A batch holds one form: ValueError otherwise, as the
-    JAX server stacks one form's fields for all queries."""
+def query_sources(queries: list[Query]) -> tuple[bool, list[Staged]]:
+    """The batch's form (direct or not) and its inputs as a graph stages
+    them: the seeds' key words (seed_words, made on the host) and the b
+    rows (B, n, 1, 1, 2, d), each query's packed_b, or first_b then
+    gsw_b, copied in place.  A batch holds one form: ValueError
+    otherwise."""
     if not queries:
         raise ValueError("empty batch")
     forms = {q.packed_b is None for q in queries}
     if len(forms) > 1:
         raise ValueError("a batch mixes packed and direct queries")
-    return ([q.seed for q in queries],
-            torch.stack([query_b_rows(q) for q in queries]).to(device),
-            forms.pop())
+    direct = forms.pop()
+    words = seed_words([q.seed for q in queries], "cpu")
+    parts = [t for q in queries for t in (
+        (q.first_b, q.gsw_b) if direct else (q.packed_b,))]
+    n = sum(t.shape[0] for t in parts) // len(queries)
+    return direct, [Staged.whole(words),
+                    Staged((len(queries), n) + tuple(parts[0].shape[1:]),
+                           parts)]
+
+
+def stack_queries(queries: list[Query], device) -> tuple[torch.Tensor,
+                                                         torch.Tensor, bool]:
+    """The batch's seed words and b rows (B, n, 1, 1, 2, d) in new tensors
+    on `device`, and whether they are of the direct form (query_sources;
+    n = 1 for the packed form)."""
+    direct, sources = query_sources(queries)
+    words, bs = static_inputs(sources, device)
+    return words, bs, direct
 
 
 class SpiralServer:
@@ -207,6 +235,19 @@ class SpiralServer:
         # G of the fold's K8b rounds (2.2 GB at spiral_24_256), so that no
         # query allocates it
         self._fold_g = mxu_workspace(params, self.device)
+        self.graphs = GraphRunner(self.device, type(self).__name__)
+
+    @property
+    def serving(self) -> str:
+        """How _run_single and process_query_batch serve: "cuda_graph" (a
+        CUDA server) or "eager" (a CPU or a mesh server)."""
+        return "cuda_graph" if self.device.type == "cuda" and \
+            self.mesh is None else "eager"
+
+    def release_graphs(self) -> None:
+        """Free the server's CUDA graphs and their pool; the next call of
+        each path captures it again."""
+        self.graphs.release()
 
     # -- stages (spiral_tpu/pir.py _build_stages); the *_batch forms,
     # compose and convert take and give a leading query axis, as the JAX
@@ -256,7 +297,11 @@ class SpiralServer:
         """The expansion stage of a batch of one form: its first-dimension
         scalars (B, dim0, 2, 1, 2, d) and GSW sources (B, nu_2*t_gsw, 2,
         1, 2, d)."""
-        seeds, bs, direct = stack_queries(queries, self.device)
+        return self._scalars(*stack_queries(queries, self.device))
+
+    def _scalars(self, seeds, bs: torch.Tensor, direct: bool):
+        """query_scalars_batch on the batch's seeds (or their seed_words)
+        and b rows."""
         if direct:
             return self.reconstruct_direct_batch(seeds, bs)
         return self.expand_batch(seeds, bs)
@@ -313,11 +358,12 @@ class SpiralServer:
                         device="cuda") -> EncodedDb:
         return encode_db(pts, params, torch.device(device))
 
-    def _survivors(self, query: Query, mark=no_mark) -> torch.Tensor:
-        """The stages of one query up to the fold, `mark` called after
-        each (first dim and fold one stage under a mesh): the folded ct,
-        coefficient domain."""
-        first_b, gsw_b = self.query_scalars_batch([query])
+    def _final(self, seeds, bs, direct: bool, mark=no_mark) -> torch.Tensor:
+        """The stages of one query (its seeds or seed_words and b rows (1,
+        n, 1, 1, 2, d)) up to the fold, `mark` called after each (first
+        dim and fold one stage under a mesh): the folded ct, coefficient
+        domain."""
+        first_b, gsw_b = self._scalars(seeds, bs, direct)
         mark()
         C_reg = self.compose(first_b[0])
         mark()
@@ -330,12 +376,45 @@ class SpiralServer:
         mark()
         return final
 
-    def _run_single(self, query: Query, mark=no_mark):
-        """Every stage of one query, enqueued: the response rows on the
-        device."""
-        rows = modswitch_device(self._survivors(query, mark), self.params)
+    def _rows(self, seeds, bs, direct: bool, mark=no_mark):
+        """Every stage of one query: the response rows on the device."""
+        rows = modswitch_device(self._final(seeds, bs, direct, mark),
+                                self.params)
         mark()
         return rows
+
+    def _batch_rows(self, seeds, bs, direct: bool, mark=no_mark):
+        """Every stage of a batch (its seeds or seed_words and b rows (B,
+        n, 1, 1, 2, d)), `mark` called after each: the rows (B, 1, n2, d)
+        and (B, n1 - 1, n2, d) on the device."""
+        first_b, gsw_b = self._scalars(seeds, bs, direct)
+        mark()
+        C_reg_b = self.compose(first_b)
+        mark()
+        q_pos_b, q_neg_b = self.convert(gsw_b)
+        mark()
+        cts_b = self.first_dim_batch(C_reg_b)
+        if self.mesh is None:
+            mark()
+        finals = self.fold_batch(cts_b, q_pos_b, q_neg_b)
+        mark()
+        rows = modswitch_device(finals, self.params)
+        mark()
+        return rows
+
+    def _run_eager(self, query: Query, mark=no_mark):
+        """Every stage of one query, enqueued eagerly, `mark` called after
+        each: the response rows on the device."""
+        return self._rows(*stack_queries([query], self.device), mark)
+
+    def _run_batch(self, queries: list[Query], mark=no_mark):
+        """Every stage of a batch, enqueued eagerly: its rows."""
+        return self._batch_rows(*stack_queries(queries, self.device), mark)
+
+    def _run_single(self, query: Query):
+        """One query served (serve_single): fresh response rows on the
+        device."""
+        return serve_single(self, query, SPIRAL_STAGES)
 
     _response = staticmethod(response_from_device_rows)
 
@@ -343,15 +422,16 @@ class SpiralServer:
         """The folded ct before the modulus switch, (n1, n2, 2, d)
         coefficient domain: the error-analysis hook (ref: --output-err,
         src/spiral.cpp:1517-1535)."""
-        return self._survivors(query)
+        return self._final(*stack_queries([query], self.device))
 
     def process_query(self, query: Query):
-        """Answer one query of either form: (Response, ServerTimings).  A
-        direct query's reconstruction (and any part's expansion) is timed
-        as its expansion_us; the JAX server leaves that field at 0 for
-        direct queries, the time falling into its composition."""
+        """Answer one query of either form: (Response, ServerTimings), the
+        stages run eagerly between CUDA events.  A direct query's
+        reconstruction (and any part's expansion) is timed as its
+        expansion_us; the JAX server leaves that field at 0 for direct
+        queries, the time falling into its composition."""
         clock = StageClock(self.device)
-        rows = self._run_single(query, clock.mark)
+        rows = self._run_eager(query, clock.mark)
         return self._response(*rows), _timings(clock, self.mesh is not None)
 
     def process_query_fused(self, query: Query):
@@ -361,34 +441,73 @@ class SpiralServer:
 
     def process_query_batch(self, queries: list[Query]):
         """Answer a batch of queries of one form: (list[Response], seconds),
-        the window from the first stage until the response rows are on the
-        host (the JAX process_query_batch's).  The stage times of the batch
-        are left in ``last_batch_timings``.  A mixed batch raises
-        ValueError, and so does a sharded batch over an implicit database
-        (the JAX mesh server's batch multiplies the slab once and raises a
-        TypeError there)."""
+        the window from the staging of the batch (a mesh server: its first
+        stage) until the response rows are on the host.  A CUDA server
+        serves it with one replay of the graph for (form, B), captured on
+        first use after an eager run whose stage times are left in
+        ``last_batch_timings`` (for that form and B).  A mixed batch
+        raises ValueError, and so does a sharded batch over an implicit
+        database (the JAX mesh server's batch multiplies the slab once and
+        raises a TypeError there)."""
         if self.mesh is not None and isinstance(self.db, ImplicitDb):
             raise ValueError("a sharded batch over an implicit database is "
                              "not supported")
+        return serve_batch(self, queries, SPIRAL_STAGES,
+                           lambda clock: _timings(clock,
+                                                  self.mesh is not None))
+
+
+def serve_single(server, query: Query, stages: tuple):
+    """A server's _run_single: on a CUDA server one replay of the graph of
+    the query's form (captured on first use), on a CPU server the same
+    staged runner run eagerly, on a mesh server the eager stages
+    (server._run_eager).  -> fresh response rows on the device."""
+    if server.mesh is not None:
+        return server._run_eager(query)
+    direct, sources = query_sources([query])
+    return server.graphs.run(
+        ("single", direct, 1),
+        lambda w, b, mark: server._rows(w, b, direct, mark), sources, stages)
+
+
+def serve_batch(server, queries: list[Query], stages: tuple,
+                timings) -> tuple[list[Response], float]:
+    """A server's process_query_batch: (responses, seconds) from the
+    staging (a mesh server: its first stage) until the responses are on
+    the host.  A mesh server runs server._batch_rows eagerly between stage
+    marks.  Otherwise the GraphRunner serves it: on a CUDA server, on the
+    first call for (form, B), an untimed eager run between stage marks,
+    its ServerTimings by `timings` kept with the program, and the capture;
+    then one timed replay.  On a CPU server the runner's eager run is
+    marked itself.  The stage times go to server.last_batch_timings."""
+    if server.mesh is not None:
         t0 = time.perf_counter()
-        clock = StageClock(self.device)
-        first_b, gsw_b = self.query_scalars_batch(queries)
-        clock.mark()
-        C_reg_b = self.compose(first_b)
-        clock.mark()
-        q_pos_b, q_neg_b = self.convert(gsw_b)
-        clock.mark()
-        cts_b = self.first_dim_batch(C_reg_b)
-        if self.mesh is None:
-            clock.mark()
-        finals = self.fold_batch(cts_b, q_pos_b, q_neg_b)
-        clock.mark()
-        first, rest = modswitch_device(finals, self.params)
-        clock.mark()
-        responses = responses_from_device_rows(first, rest)
+        clock = StageClock(server.device)
+        responses = responses_from_device_rows(
+            *server._run_batch(queries, clock.mark))
         seconds = time.perf_counter() - t0
-        self.last_batch_timings = _timings(clock, self.mesh is not None)
+        server.last_batch_timings = timings(clock)
         return responses, seconds
+    direct, sources = query_sources(queries)
+    key = ("batch", direct, len(queries))
+
+    def body(words, bs, mark):
+        return server._batch_rows(words, bs, direct, mark)
+
+    def warm(words, bs):
+        clock = StageClock(server.device)
+        body(words, bs, clock.mark)
+        return timings(clock)
+
+    server.graphs.prepare(key, body, sources, stages, warm)
+    prog = server.graphs.programs[key]
+    t0 = time.perf_counter()
+    clock = StageClock(server.device) if prog.graph is None else None
+    responses = responses_from_device_rows(*server.graphs.run(
+        key, body, sources, stages, clock.mark if clock else no_mark))
+    seconds = time.perf_counter() - t0
+    server.last_batch_timings = timings(clock) if clock else prog.warm_out
+    return responses, seconds
 
 
 def _timings(clock: StageClock, sharded: bool = False) -> ServerTimings:

@@ -7,10 +7,12 @@ so that no host time enters.  Its counterpart here is a CUDA graph: the
 prefix of SpiralServer._run_single ending at each stage (depth 1..6) is
 captured once and replayed `iters` times between two CUDA events, best of
 `reps`; consecutive prefixes are differenced, so the stage sum is
-fused_total_us but for the rounding.  The query's device inputs, its
-seed's key words and its b rows, are staged in tensors made before the
-capture, so a graph copies nothing from the host.  A prefix that cannot
-be captured raises, naming its stage: nothing falls back to eager timing.
+fused_total_us but for the rounding.  The capture and the staging of the
+query's device inputs (its seed's key words and its b rows, in tensors
+made before the capture, so a graph copies nothing from the host) are
+the serving path's (graphs.py); replays made here to time a prefix add
+nothing to the kernels' launch counts.  A prefix that cannot be captured
+raises, naming its stage: nothing falls back to eager timing.
 
 On a CPU server (the caller's choice) the prefixes run eagerly on the
 host clock.
@@ -21,12 +23,10 @@ import time
 
 import torch
 
+from . import graphs
 from .crypto.decode import modswitch_device
-from .crypto.query import query_b_rows, seed_words
-from .pir import SpiralServer
-
-STAGES = ("expansion", "composition", "conversion", "first_multiply",
-          "folding", "modswitch")
+from .pir import SPIRAL_STAGES as STAGES
+from .pir import SpiralServer, query_sources
 
 
 def _prefix(server: SpiralServer, words, bs, depth: int) -> tuple:
@@ -48,18 +48,6 @@ def _prefix(server: SpiralServer, words, bs, depth: int) -> tuple:
     if depth == 5:
         return (final,)
     return modswitch_device(final, server.params)
-
-
-def _capture(run, stage: str):
-    """run() captured as a CUDA graph -> (graph, its output tensors)."""
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            out = run()
-    except RuntimeError as e:
-        raise RuntimeError(f"CUDA graph capture of the prefix ending at "
-                           f"{stage} failed: {e}") from e
-    return graph, out
 
 
 def _seconds_per_run(run, iters: int, reps: int, cuda: bool) -> float:
@@ -99,15 +87,17 @@ def prefix_times(server: SpiralServer, query, iters: int = 8,
         raise ValueError("stage profiling takes a packed query, not the "
                          "direct form")
     cuda = server.device.type == "cuda"
-    words = seed_words([query.seed], server.device)
-    bs = query_b_rows(query)[None].to(server.device, copy=True)
+    words, bs = graphs.static_inputs(query_sources([query])[1],
+                                     server.device)
     times = []
     for depth, stage in enumerate(STAGES, 1):
         run = lambda d=depth: _prefix(server, words, bs, d)  # noqa: E731
         if cuda:
             # the previous prefix's graph and outputs are freed here
-            graph, out = _capture(run, stage)
-            run = graph.replay
+            graph = graphs.Graph(
+                run, lambda s=stage: f"the prefix ending at {s}",
+                server.device)
+            run, out = graph.graph.replay, graph.outputs
         times.append(_seconds_per_run(run, iters, reps, cuda))
     rows = [x.cpu() for x in (out if cuda else run())]
     return times, rows
@@ -119,12 +109,13 @@ def device_stage_times(server: SpiralServer, query, iters: int = 8,
     query: {"expansion_us", "composition_us", "conversion_us",
     "first_multiply_us", "folding_us", "modswitch_us", "fused_total_us"},
     non-negative ints.  Raises if the full prefix's rows differ from the
-    eager _run_single's: a replay must not change the server's state."""
-    eager = [x.cpu() for x in server._run_single(query)]
+    eager stages' (_run_eager): a replay must not change the server's
+    state."""
+    eager = [x.cpu() for x in server._run_eager(query)]
     times, rows = prefix_times(server, query, iters, reps)
     if not all(torch.equal(a, b) for a, b in zip(rows, eager)):
         raise RuntimeError("the profiled pipeline's response rows differ "
-                           "from the eager _run_single's")
+                           "from the eager stages' rows")
     out = {}
     prev = 0.0
     for stage, t in zip(STAGES, times):

@@ -1,7 +1,8 @@
 """The port's bench (spiral_tpu_torch/bench.py) on the CPU at the tiny
 presets: one JSON line with exactly bench.py's keys plus
-detail.stage_basis, correct decodes, and db_bytes and response_bytes equal
-to bench.py's formulas on the JAX package's Params.  Runs in-process."""
+detail.stage_basis and detail.serving ("eager" here), correct decodes,
+and db_bytes and response_bytes equal to bench.py's formulas on the JAX
+package's Params.  Runs in-process."""
 import json
 import math
 
@@ -58,10 +59,11 @@ def test_bench_json_contract(case, capsys):
     name = argv[1]
     batch = "--batch" in argv
     implicit = "--implicit" in argv
+    assert detail["serving"] == "eager"
     if batch:
-        assert set(detail) == BATCH_DETAIL
+        assert set(detail) == BATCH_DETAIL | {"serving"}
     else:
-        want = SINGLE_DETAIL | {"stage_basis"} | (
+        want = SINGLE_DETAIL | {"stage_basis", "serving"} | (
             set() if implicit else BATCH8)
         assert set(detail) == want
         assert detail["stage_basis"].startswith("host_clock")

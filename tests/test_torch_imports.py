@@ -33,4 +33,4 @@ def test_port_imports_without_jax():
             ("native", "serialize", "factored", "profiling", "bench",
              "harness", "paramgen.search", "select_params", "run_scheme",
              "output_params", "dist.shard", "dist.multihost",
-             "graft_entry")} <= set(names)
+             "graft_entry", "graphs")} <= set(names)
