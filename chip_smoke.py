@@ -74,11 +74,14 @@ Phases, each printing its own lines and its wall time:
   9. the measurement layer, after every earlier phase's database is
      freed: at spiral_20_256 profiling.device_stage_times (each prefix of
      a query captured and replayed as a CUDA graph; a failed capture, or
-     replayed rows other than the eager rows, fails the run) beside the
-     process_query CUDA-event split, the host's share of each stage,
-     process_query_fused's seconds and the device's busy share of served
-     queries from a torch.profiler trace, the response after profiling
-     equal to the one before and the stage sum equal to fused_total_us;
+     replayed rows other than the eager rows, fails the run) beside three
+     runs of process_query's stage chain (one CUDA graph per stage, CUDA
+     events between the replays; its rows equal _run_eager's, and each
+     stage's median within max(10%, 50 us) of the prefix stage, or the
+     run fails), process_query_fused's seconds and the device's busy
+     share of served queries from a torch.profiler trace, the response
+     after profiling equal to the one before and the stage sum equal to
+     fused_total_us;
      then the port's bench (python -m spiral_tpu_torch.bench) at
      spiral_20_256 and at spiral_24_256 --implicit, harness ubench at
      spiral_20_256 and harness packingcomp at the four full presets, in
@@ -99,7 +102,10 @@ Phases, each printing its own lines and its wall time:
      phase: at spiral_20_256 the sharded SpiralServer (mesh of 1) against
      the unsharded one over the same 2 GiB database, three queries (rows
      equal, decoded; process_query and process_query_fused times of
-     both), a batch of 8 (rows equal), multihost.ingest_and_serve (the
+     both), a batch of 8 (rows equal), check_graph_serving on the sharded
+     server (its all-gather captured in its graphs) and its served
+     graph's rows against the unsharded server's,
+     multihost.ingest_and_serve (the
      database encoded again by encode_db_local; rows equal) and
      sharded_firstdim_and_fold (equal to the unsharded fold output); then
      worlds 2 and 4 one rank at a time on the one card (each rank's column
@@ -108,25 +114,33 @@ Phases, each printing its own lines and its wall time:
      stacks them, the tail and the modulus switch: rows equal to the
      unsharded rows); the sharded PackServer at spiralpack_20_256 and the
      sharded implicit spiral_24_256 query (rows equal to the unsharded
+     servers'; check_graph_serving on both, the implicit one without a
+     batch, and their served graphs' rows against the unsharded
      servers'); graft_entry's step and dryrun_multichip(1); harness dist
      --devices 1 (one row, correct).  The card has no peer here, so no
      multi-card time is measured.
 Phases 4-8 also check the served path as CUDA graphs (graphs.py,
 check_graph_serving) at spiral_20_256, spiralpack_20_256, spiral_24_256
 implicit, spiralstream_20_256, spiralstreampack_20_256 and the factored
-x 13: the graph-served rows equal the eager process_query rows bit for
-bit; 8 distinct queries enqueued back to back through _run_single and
+x 13 (and phase 11's mesh-of-one servers): process_query (the stage
+chain) and _run_single in turn on two queries each give the eager rows
+(the chain is not clobbered by the served graph); 8 distinct queries
+enqueued back to back through _run_single and
 fetched at the end each decode to their own record (implicit: each
 equals its eager rows); a warm served query makes no host sync in its
 enqueue and, in a torch.profiler trace, one cudaGraphLaunch and no kernel
 launch; a batch of 8 replayed twice equals its eager run (not factored,
 whose served tail graph is timed in process_query_fused).  Each prints
-the served and pipelined seconds eager and as a graph, the device's busy
-share of each, and the capture seconds and pool bytes of each graph; the
+the stage chain's split of three process_query runs beside the device
+time of a traced served query, the served and pipelined seconds eager
+and as a graph, the device's busy share of each, and the capture seconds
+and pool bytes of each graph (the stage chain's summed over its graphs,
+captured by the first process_query of each path, capture_chain); the
 line "graphs {...}" before the kernels' JSON holds them all.  Since the
-servers serve through graphs, the served, batch and pipelined runs of
-phases 4-11 replay graphs; process_query stays the eager CUDA-event
-split, and the mesh servers of phase 11 serve eagerly.
+servers serve through graphs, the process_query, served, batch and
+pipelined runs of phases 4-11 replay graphs, the mesh servers' too; the
+fold forced to one engine releases the server's graphs before and after
+(a graph replays the engine its capture saw).
 Phases 4, 5 and 7 also send one query of each full preset over the wire
 (serialize.py: query bytes -> process_query_fused -> response bytes ->
 decode, equal to its process_query rows), count the host syncs torch
@@ -251,6 +265,10 @@ BATCH = 8
 MEASURE_PRESET = "spiral_20_256"
 MEASURE_RUNS = 3
 STAGE_SUM_TOLERANCE = 0.01
+# a stage chain's stage (process_query) against its prefix-differenced
+# stage (profiling.device_stage_times): the larger of the two bounds
+CHAIN_TOLERANCE = 0.10
+CHAIN_TOLERANCE_US = 50
 MEASURE_RUNS_ARGV = (
     ("bench spiral_20_256", "bench", ["--preset", "spiral_20_256"],
      SPIRAL_PATH + ("fold_batch",)),
@@ -1062,6 +1080,33 @@ def report_batch(tag: str, server, n: int, seconds: float, db_bytes: int,
         raise SystemExit(f"{tag}: a kernel of the path was never launched")
 
 
+def capture_chain(tag: str, server, query, card: str) -> dict:
+    """The first process_query of `query`'s form on a fresh server: its
+    eager warm run and the capture of its stage chain (graphs.py, one
+    graph per stage), so that the later queries' launch lines count one
+    replay each.  Prints and returns the chain's stats; fails unless it
+    holds one graph per stage of the server."""
+    server.process_query(query)
+    return chain_stats(tag, server, query.packed_b is None, card)
+
+
+def chain_stats(tag: str, server, direct: bool, card: str) -> dict:
+    """Print and return the stats of `server`'s stage chain for the form
+    `direct`, captured; fails unless it holds one graph per stage."""
+    stats = server.graphs.stats()[("stages", direct, 1)]
+    print(f"{tag} stage chain: {stats['graphs']} graphs ({server.stages}) "
+          f"captured on the first process_query: warm run "
+          f"{stats['warm_s']:.3f} s, capture {stats['capture_s']:.3f} s, "
+          f"pool +{stats['pool_bytes'] / 2**20:.1f} MiB [{card}]",
+          flush=True)
+    if stats["graphs"] != len(server.stages):
+        raise SystemExit(f"{tag}: {stats['graphs']} stage graphs for "
+                         f"{len(server.stages)} stages")
+    return {"stages_warm_s": stats["warm_s"],
+            "stages_capture_s": stats["capture_s"],
+            "stages_pool_bytes": stats["pool_bytes"]}
+
+
 def run_fold_forced(tag: str, server, answered: list, card: str,
                     decode=None) -> tuple[dict, dict]:
     """Serve queries again with the fold's engine forced in every round
@@ -1069,8 +1114,10 @@ def run_fold_forced(tag: str, server, answered: list, card: str,
     (`answered`: (idx, query, default response)) and, where `decode` =
     (client, records) is given, decode to its record.  Prints stage times
     and launches per query, and fails if a forced run launched a kernel it
-    must not, or missed one it must.  Returns the launches of each forced
-    run and those of its last query."""
+    must not, or missed one it must.  The server's graphs are released
+    before and after each forced run: a graph replays the engine its
+    capture saw.  Returns the launches of each forced run and those of its
+    last query."""
     from spiral_tpu_torch import kernels
     from spiral_tpu_torch.server import fold
 
@@ -1079,6 +1126,7 @@ def run_fold_forced(tag: str, server, answered: list, card: str,
     for forced, forced_rule, must, must_not in FOLD_FORCED:
         ftag = f"{tag} fold {forced}"
         fold.MXU_MIN_COLS = forced_rule
+        server.release_graphs()
         try:
             kernels.reset_launches()
             for idx, q, want in answered:
@@ -1092,7 +1140,7 @@ def run_fold_forced(tag: str, server, answered: list, card: str,
                 print(f"{ftag} query idx={idx}: rows equal the default "
                       f"server's={same}" +
                       ("" if decode is None else f" correct={ok}") +
-                      f" server {tm.total_us / 1e3:.3f} ms (cuda events) "
+                      f" server {tm.total_us / 1e3:.3f} ms (stage graphs) "
                       f"stages_us={stages} launches={pq} [{card}]",
                       flush=True)
                 if not (same and ok):
@@ -1100,6 +1148,7 @@ def run_fold_forced(tag: str, server, answered: list, card: str,
                                      f"default server's={same}, decodes={ok}")
         finally:
             fold.MXU_MIN_COLS = rule
+            server.release_graphs()
         launches[ftag], per_query[ftag] = dict(kernels.LAUNCHES), pq
         if not all(launches[ftag][k] for k in must) or \
                 any(launches[ftag][k] for k in must_not):
@@ -1141,6 +1190,7 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
     print(f"{name} setup: db gen {t1 - t0:.2f} s, encode on card "
           f"{t2 - t1:.2f} s, client keys+public params {t3 - t2:.2f} s",
           flush=True)
+    chain = capture_chain(name, server, client.query(1), card)
 
     idxs = [0, params.total_n - 1, int(rng.integers(0, params.total_n))]
     db_bytes = pts.size * int(np.log2(params.p_db)) // 8
@@ -1156,7 +1206,7 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
         ok = np.array_equal(client.decode(resp), pts[idx].astype(object))
         stages = {k: round(v, 1) for k, v in vars(tm).items()}
         print(f"{name} query idx={idx} correct={ok} server "
-              f"{tm.total_us / 1e3:.3f} ms (cuda events; host wall "
+              f"{tm.total_us / 1e3:.3f} ms (stage graphs; host wall "
               f"{wall * 1e3:.1f} ms) "
               f"{db_bytes / tm.total_us:.1f} MB/s stages_us={stages} "
               f"launches={per_query} [{card}]", flush=True)
@@ -1202,6 +1252,7 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
         name, server, qs, lambda i, rows: np.array_equal(
             client.decode(server._response(*rows)),
             pts[bidx[i]].astype(object)), card)
+    GRAPHS[name].update(chain)
     paths, per_q = {name: launches, f"{name} batch": batch}, \
         {name: per_query}
     if not pack:
@@ -1258,8 +1309,11 @@ def host_s(run) -> float:
 def check_graph_serving(tag: str, server, queries: list, check,
                         card: str, batch: bool = True) -> dict:
     """The served path of `server` as CUDA graphs (graphs.py), each check
-    failing the run: the graph-served rows of queries[0] equal its eager
-    process_query rows bit for bit; GRAPH_QUERIES distinct queries
+    failing the run: process_query (the stage chain) and _run_single (the
+    served graph) in turn on queries[0] and queries[1], twice, each give
+    the query's eager rows bit for bit (no graph writes over the chain's
+    stages); the chain's split of MEASURE_RUNS runs is printed beside the
+    device time of a traced served query; GRAPH_QUERIES distinct queries
     enqueued back to back through _run_single and fetched at the end each
     pass check(index, rows); a warm served query makes no host sync in its
     enqueue (count_syncs) and, in a torch.profiler trace, one
@@ -1274,16 +1328,25 @@ def check_graph_serving(tag: str, server, queries: list, check,
 
     q = queries[0]
     direct = q.packed_b is None
-    want, _ = server.process_query(q)
-    served = server._response(*server._run_single(q))
-    same = same_rows(served, want) if not isinstance(want, list) else all(
-        same_rows(a, b) for a, b in zip(served, want))
-    if not same:
-        raise SystemExit(f"{tag} graph: served rows differ from the eager "
-                         f"process_query rows")
+
+    def same(a, b):
+        return same_rows(a, b) if not isinstance(a, list) else all(
+            same_rows(x, y) for x, y in zip(a, b))
 
     def fetch(rows):
         return [x.cpu() for x in rows]
+
+    # the stage chain is not clobbered by the served graph: process_query
+    # and _run_single in turn on two queries, each equal to its eager rows
+    for x in (q, queries[1], q, queries[1]):
+        want = server._response(*fetch(server._run_eager(x)))
+        chained, _ = server.process_query(x)
+        served = server._response(*server._run_single(x))
+        if not (same(chained, want) and same(served, want)):
+            raise SystemExit(f"{tag} graph: the stage chain's rows equal "
+                             f"the eager rows={same(chained, want)}, the "
+                             f"served graph's={same(served, want)}")
+    splits = [server.process_query(q)[1] for _ in range(MEASURE_RUNS)]
 
     eager_s, graph_s = [], []
     for turn in range(SERVED_RUNS):
@@ -1325,7 +1388,15 @@ def check_graph_serving(tag: str, server, queries: list, check,
 
     stats = server.graphs.stats()
     single = stats[("single", direct, 1)]
-    out = {"served_eager_ms": e * 1e3, "served_graph_ms": g * 1e3,
+    chain = {k[:-3]: [round(getattr(t, k), 1) for t in splits]
+             for k in vars(splits[0]) if any(getattr(t, k) for t in splits)}
+    totals = [round(t.total_us, 1) for t in splits]
+    print(f"{tag} stage chain split (process_query, CUDA events between the "
+          f"per-stage graph replays, {MEASURE_RUNS} runs, us): {chain}; "
+          f"totals {totals} against {kernel_us:.1f} us of device time in a "
+          f"traced served query [{card}]", flush=True)
+    out = {"stages_us": chain, "stages_total_us": totals,
+           "served_eager_ms": e * 1e3, "served_graph_ms": g * 1e3,
            "served_eager_max_ms": max(eager_s) * 1e3,
            "served_graph_max_ms": max(graph_s) * 1e3,
            "fused_ms": fused_s * 1e3, "pipelined_eager_ms": pipe_eager * 1e3,
@@ -1335,7 +1406,8 @@ def check_graph_serving(tag: str, server, queries: list, check,
            "device_us_graph": kernel_us,
            "capture_s": single["capture_s"],
            "pool_bytes": single["pool_bytes"]}
-    print(f"{tag} graph: served rows equal process_query's; "
+    print(f"{tag} graph: the stage chain's and the served graph's rows, in "
+          f"turn, equal the eager rows; "
           f"{len(queries)} pipelined distinct queries each correct; 0 host "
           f"syncs; trace of a served query: {calls} (eager: "
           f"{eager_calls}); served eager "
@@ -1383,9 +1455,11 @@ def check_graph_serving(tag: str, server, queries: list, check,
               f"traced run {kb_eager:.1f} / {kb_graph:.1f} us; capture "
               f"{bstats['capture_s']:.3f} s, pool "
               f"+{bstats['pool_bytes'] / 2**20:.1f} MiB [{card}]", flush=True)
-    pool = sum(s["pool_bytes"] for s in server.graphs.stats().values())
+    stats = server.graphs.stats()
+    pool = sum(s["pool_bytes"] for s in stats.values())
     out["pool_total_bytes"] = pool
-    print(f"{tag} graph pool: {len(server.graphs.programs)} graphs, "
+    print(f"{tag} graph pool: {len(stats)} programs of "
+          f"{sum(s['graphs'] for s in stats.values())} graphs, "
           f"{pool / 2**20:.1f} MiB in all [{card}]", flush=True)
     return out
 
@@ -1574,6 +1648,7 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
           f"client keys+public params and server {t2 - t1:.2f} s",
           flush=True)
 
+    chain = capture_chain(f"{name} factored", server, client.query(1), card)
     kernels.reset_launches()
     for n, idx in enumerate(idxs):
         q = client.query(idx)
@@ -1592,8 +1667,8 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
         stages = {k: round(v, 1) for k, v in vars(tm).items()}
         print(f"{name} factored query idx={idx}: all {factor} chunks "
               f"decode: process_query={ok}, process_query_fused={fok}, "
-              f"rows equal={same}; server {tm.total_us / 1e3:.3f} ms (cuda "
-              f"events) stages_us={stages}, fused {seconds * 1e3:.3f} ms "
+              f"rows equal={same}; server {tm.total_us / 1e3:.3f} ms (stage "
+              f"graphs) stages_us={stages}, fused {seconds * 1e3:.3f} ms "
               f"(host clock until the rows are on the host); first dim "
               f"{db_bytes / tm.first_multiply_us / 1e3:.1f} GB/s of 3,350 "
               f"(incl. the inverse NTT); launches: process_query="
@@ -1625,7 +1700,8 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
             decode_factored(client, server._response(*rows)),
             np.stack(kept[gidx[i]]).astype(object)), card, batch=False)
     GRAPHS[f"{name} factored"].update(
-        tail_capture_s=tail["capture_s"], tail_pool_bytes=tail["pool_bytes"])
+        tail_capture_s=tail["capture_s"], tail_pool_bytes=tail["pool_bytes"],
+        **chain)
     print_syncs(f"{name} factored process_query_fused",
                 count_syncs(lambda: server._run_single(q)))
 
@@ -1689,13 +1765,14 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
     bidx = [int(i) for i in rng.integers(0, params.total_n, BATCH - 2)]
     bidx = bidx[:1] + [0, params.total_n - 1] + bidx[1:]
     qs = [client.query(i) for i in bidx]
+    chain = capture_chain(f"{name} implicit", server, client.query(1), card)
     torch.cuda.synchronize()
     kernels.reset_launches()
     resp, tm = server.process_query(qs[0])
     single = dict(kernels.LAUNCHES)
     stages = {k: round(v, 1) for k, v in vars(tm).items()}
     print(f"{name} implicit query idx={bidx[0]}: server "
-          f"{tm.total_us / 1e3:.3f} ms (cuda events) "
+          f"{tm.total_us / 1e3:.3f} ms (stage graphs) "
           f"{db_bytes / tm.total_us:.1f} MB/s stages_us={stages} "
           f"launches={single} [{card}]", flush=True)
     if not all(single[k] for k in IMPLICIT_PATH):
@@ -1708,7 +1785,7 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
     stages = {k: round(v, 1) for k, v in vars(tm).items()}
     print(f"{name} implicit query idx={bidx[0]} again: rows equal the first "
           f"run's={same_rows(again, resp)} server {tm.total_us / 1e3:.3f} ms "
-          f"(cuda events) {db_bytes / tm.total_us:.1f} MB/s "
+          f"(stage graphs) {db_bytes / tm.total_us:.1f} MB/s "
           f"stages_us={stages} [{card}]", flush=True)
     if not same_rows(again, resp):
         raise SystemExit(f"{name} implicit: a second run of the query gave "
@@ -1735,6 +1812,7 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
     GRAPHS[f"{name} implicit"] = check_graph_serving(
         f"{name} implicit", server, qs, lambda i, rows: all(
             torch.equal(a, b) for a, b in zip(rows, eager[i])), card)
+    GRAPHS[f"{name} implicit"].update(chain)
     forced, forced_q = run_fold_forced(f"{name} implicit", server,
                                        [(bidx[0], qs[0], resp)], card)
     return ({f"{name} implicit": single, f"{name} implicit batch": batch,
@@ -1746,12 +1824,17 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
     """Phase 9's stage split at `name`: profiling.device_stage_times (the
     prefixes of one query as CUDA graphs; it raises if a capture fails or
     the full prefix's replayed rows differ from the eager rows) beside
-    the CUDA-event split of process_query (least of MEASURE_RUNS runs per
-    stage) and process_query_fused's seconds; then a torch.profiler trace
-    of MEASURE_RUNS served queries, whose kernel time over their host
-    seconds is the device's busy share.  The response after profiling
-    must equal the one before, and the stage sum fused_total_us to within
-    STAGE_SUM_TOLERANCE."""
+    the stage chain's split of process_query (CUDA events between its
+    per-stage graph replays) in MEASURE_RUNS runs on an idle card and
+    MEASURE_RUNS runs each behind a served query (the card busy when the
+    chain starts, as the prefixes' back-to-back replays keep it), and
+    process_query_fused's seconds; then a torch.profiler trace of
+    MEASURE_RUNS served queries, whose kernel time over their host seconds
+    is the device's busy share.  The chain's rows must equal _run_eager's,
+    the response after profiling the one before, the prefixes' stage sum
+    fused_total_us to within STAGE_SUM_TOLERANCE, and each stage's median
+    over the chain's runs behind a served query the prefix stage to
+    within max(CHAIN_TOLERANCE, CHAIN_TOLERANCE_US)."""
     from spiral_tpu_torch import profiling
     from spiral_tpu_torch.params import preset
     from spiral_tpu_torch.pir import SpiralClient, SpiralServer
@@ -1766,42 +1849,74 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
     del pts
     idx = int(rng.integers(0, params.total_n))
     q = client.query(idx)
+    capture_chain(name, server, q, card)
     before, _ = server.process_query(q)
+    eager = server._response(*server._run_eager(q))
+    if not same_rows(before, eager):
+        raise SystemExit(f"{name}: the stage chain's rows differ from the "
+                         f"eager rows")
     server.process_query_fused(q)
     single = server.graphs.stats()[("single", False, 1)]
-    print(f"{name} served graph captured first on a fresh server: capture "
+    print(f"{name} served graph captured after the stage chain: capture "
           f"{single['capture_s']:.3f} s, pool "
           f"+{single['pool_bytes'] / 2**20:.1f} MiB, warm run "
           f"{single['warm_s']:.3f} s [{card}]", flush=True)
     graph = profiling.device_stage_times(server, q)
     after, _ = server.process_query(q)
-    events = [server.process_query(q)[1] for _ in range(MEASURE_RUNS)]
+    idle = [server.process_query(q)[1] for _ in range(MEASURE_RUNS)]
+    # each behind a served query, enqueued with no sync: the card is busy
+    # when the chain starts, as in the prefixes' back-to-back replays
+    events = []
+    for _ in range(MEASURE_RUNS):
+        server._run_single(q)
+        events.append(server.process_query(q)[1])
     fused = min(server.process_query_fused(q)[1]
                 for _ in range(MEASURE_RUNS))
     same = same_rows(before, after)
     print(f"{name} stage split idx={idx}: the graph-replayed rows equal the "
-          f"eager rows (device_stage_times checks them); the response after "
-          f"profiling equals the one before={same} [{card}]", flush=True)
+          f"eager rows (device_stage_times checks them; the stage chain's "
+          f"too); the response after profiling equals the one before={same} "
+          f"[{card}]", flush=True)
     if not same:
         raise SystemExit(f"{name}: profiling changed the response")
-    total_event = min(t.total_us for t in events)
-    print(f"{name} stage split, us: stage, cuda graph prefixes "
-          f"(iters 8, best of 3), process_query cuda events (least of "
-          f"{MEASURE_RUNS}), host share of the event time [{card}]",
-          flush=True)
+    print(f"{name} stage split, us: stage, cuda graph prefixes (iters 8, "
+          f"best of 3), process_query's stage chain (CUDA events between "
+          f"per-stage graph replays; {MEASURE_RUNS} runs each behind a "
+          f"served query), chain median - prefix, the chain on an idle card "
+          f"({MEASURE_RUNS} runs) [{card}]", flush=True)
+    off = []
+    split = {}
     for stage in profiling.STAGES:
         g = graph[f"{stage}_us"]
-        e = min(getattr(t, f"{stage}_us") for t in events)
-        print(f"  {stage}: {g} | {e:.1f} | {1 - g / e:.3f}", flush=True)
+        runs = [getattr(t, f"{stage}_us") for t in events]
+        cold = [getattr(t, f"{stage}_us") for t in idle]
+        med = float(np.median(runs))
+        split[stage] = {"prefix": g, "chain": runs, "chain_idle": cold}
+        print(f"  {stage}: {g} | {', '.join(f'{e:.1f}' for e in runs)} | "
+              f"{med - g:+.1f} | {', '.join(f'{e:.1f}' for e in cold)}",
+              flush=True)
+        if abs(med - g) > max(CHAIN_TOLERANCE * g, CHAIN_TOLERANCE_US):
+            off.append(stage)
     stage_sum = sum(graph[f"{s}_us"] for s in profiling.STAGES)
     total = graph["fused_total_us"]
+    totals = [t.total_us for t in events]
+    GRAPHS[f"{name} stage split"] = {
+        **split, "total": {"prefix": total, "chain": totals,
+                           "chain_idle": [t.total_us for t in idle]}}
     print(f"  total: stage sum {stage_sum}, fused_total_us {total} | "
-          f"{total_event:.1f} | {1 - total / total_event:.3f}; "
-          f"process_query_fused {fused * 1e3:.3f} ms (host clock until the "
-          f"rows are on the host, least of {MEASURE_RUNS})", flush=True)
+          f"{', '.join(f'{e:.1f}' for e in totals)} | "
+          f"{float(np.median(totals)) - total:+.1f} | "
+          f"{', '.join(f'{t.total_us:.1f}' for t in idle)}; "
+          f"process_query_fused "
+          f"{fused * 1e3:.3f} ms (host clock until the rows are on the host, "
+          f"least of {MEASURE_RUNS})", flush=True)
     if abs(stage_sum - total) > max(3, STAGE_SUM_TOLERANCE * total):
         raise SystemExit(f"{name}: the stage sum {stage_sum} us is not "
                          f"fused_total_us {total}")
+    if off:
+        raise SystemExit(f"{name}: the stage chain's {off} lie outside "
+                         f"max({CHAIN_TOLERANCE:.0%}, {CHAIN_TOLERANCE_US} "
+                         f"us) of the prefix stages")
     # the device's busy share of the served path from a profiler trace:
     # device time (torch.profiler, CUPTI: device_busy_us) over the host
     # seconds of MEASURE_RUNS traced served queries, each fetched to the
@@ -1953,6 +2068,25 @@ def uncounted(run):
     return out
 
 
+def mesh_graph_rows(tag: str, server, ref, queries: list, card: str
+                    ) -> dict:
+    """A mesh server's served graph (its all-gather captured) gives the
+    unsharded server's served graph's rows for each query, and its
+    programs hold the served, chain and batch graphs of the paths driven
+    so far (serving "cuda_graph").  Returns its stage chain's stats
+    (chain_stats)."""
+    same = all(all(torch.equal(a, b) for a, b in zip(
+        server._run_single(q), ref._run_single(q))) for q in queries)
+    print(f"{tag}: the served graph's rows equal the unsharded server's "
+          f"served graph's={same} for {len(queries)} queries; serving "
+          f"{server.serving}; programs {list(server.graphs.programs)} "
+          f"[{card}]", flush=True)
+    if not same or server.serving != "cuda_graph":
+        raise SystemExit(f"{tag}: graph rows equal={same}, serving "
+                         f"{server.serving}")
+    return chain_stats(tag, server, False, card)
+
+
 def dist_spiral(seed: int, card: str, mesh) -> dict:
     """Phase 11 at DIST_PRESET: the sharded server (mesh of 1) against the
     unsharded one, queries, batch, ingest, the contraction split and the
@@ -1962,6 +2096,7 @@ def dist_spiral(seed: int, card: str, mesh) -> dict:
     from spiral_tpu_torch.crypto.decode import (modswitch_device,
                                                 response_from_device_rows,
                                                 responses_from_device_rows)
+    from spiral_tpu_torch import graphs
     from spiral_tpu_torch.dist import multihost, shard
     from spiral_tpu_torch.params import preset
     from spiral_tpu_torch.pir import SpiralClient, SpiralServer
@@ -1997,7 +2132,7 @@ def dist_spiral(seed: int, card: str, mesh) -> dict:
                   (ref, server, server, ref)]
         print(f"{name} sharded (mesh of 1) query idx={idx}: correct={ok} "
               f"rows equal the unsharded server's={same}; process_query "
-              f"{tm.total_us / 1e3:.3f} ms (cuda events; first dim + fold "
+              f"{tm.total_us / 1e3:.3f} ms (stage graphs; first dim + fold "
               f"{tm.first_multiply_us / 1e3:.3f}, folding_us "
               f"{tm.folding_us}) against unsharded {tm_ref.total_us / 1e3:.3f}"
               f" ms (first dim {tm_ref.first_multiply_us / 1e3:.3f} + fold "
@@ -2025,6 +2160,12 @@ def dist_spiral(seed: int, card: str, mesh) -> dict:
           f"the host) [{card}]", flush=True)
     if not same:
         raise SystemExit(f"{name} sharded batch: rows differ")
+    GRAPHS[f"{name} sharded"] = check_graph_serving(
+        f"{name} sharded (mesh of 1)", server, bqs, lambda i, rows:
+        np.array_equal(client.decode(server._response(*rows)),
+                       pts[bidx[i]].astype(object)), card)
+    GRAPHS[f"{name} sharded"].update(mesh_graph_rows(
+        f"{name} sharded", server, ref, bqs[:len(qs)], card))
 
     def ingest():
         t0 = time.perf_counter()
@@ -2059,6 +2200,21 @@ def dist_spiral(seed: int, card: str, mesh) -> dict:
           f"output={same}", flush=True)
     if not same:
         raise SystemExit(f"{name} sharded_firstdim_and_fold differs")
+    # psum_mod inside a capture: the contraction step as one CUDA graph
+    # (its communicator exists: the step above made it)
+    args = (shard.shard_db(db.data, mesh), reorient_query(C_reg), q_pos,
+            q_neg)
+    (graph,), (out,) = graphs.capture(
+        lambda mark: (step(*args),), 1, lambda _: "the contraction step",
+        torch.device("cuda"))
+    uncounted(graph.replay)
+    same = torch.equal(out, want)
+    print(f"{name} sharded_firstdim_and_fold as a CUDA graph (psum_mod's "
+          f"all-reduce captured): equals the unsharded fold output={same}; "
+          f"capture {graph.capture_s:.3f} s [{card}]", flush=True)
+    if not same:
+        raise SystemExit(f"{name} sharded_firstdim_and_fold's graph differs")
+    del graph, out, args
 
     qk = reorient_query(C_reg)
     n1, d = params.n1, params.poly_len
@@ -2159,22 +2315,31 @@ def dist_pack_implicit(seed: int, card: str, mesh) -> dict:
     db = pk.encode_pack_db(pts, params, torch.device("cuda"))
     client = pk.PackClient(params, seed=seed, device="cuda")
     pub = client.setup()
-    idx = int(rng.integers(0, params.total_n))
+    gidx = [int(i) for i in rng.integers(0, params.total_n, GRAPH_QUERIES)]
+    idx = gidx[0]
     q = client.query(idx)
     torch.cuda.synchronize()
+    server = pk.PackServer(params, db, pub, mesh=mesh)
     (resp, tm), paths[f"{name} sharded"] = count_launches(
-        f"{name} sharded", lambda: pk.PackServer(
-            params, db, pub, mesh=mesh).process_query(q), PACK_PATH, card)
-    want, tm_ref = pk.PackServer(params, db, pub).process_query(q)
+        f"{name} sharded", lambda: server.process_query(q), PACK_PATH, card)
+    ref = pk.PackServer(params, db, pub)
+    want, tm_ref = ref.process_query(q)
     ok = np.array_equal(client.decode(resp), pts[idx].astype(object))
     same = same_rows(resp, want)
     print(f"{name} sharded (mesh of 1) query idx={idx}: correct={ok} rows "
           f"equal the unsharded server's={same}; {tm.total_us / 1e3:.3f} ms "
-          f"against {tm_ref.total_us / 1e3:.3f} ms (cuda events) [{card}]",
+          f"against {tm_ref.total_us / 1e3:.3f} ms (stage graphs) [{card}]",
           flush=True)
     if not (ok and same):
         raise SystemExit(f"{name} sharded: decodes={ok}, rows equal={same}")
-    del db, resp, want
+    gqs = [q] + [client.query(i) for i in gidx[1:]]
+    GRAPHS[f"{name} sharded"] = check_graph_serving(
+        f"{name} sharded (mesh of 1)", server, gqs, lambda i, rows:
+        np.array_equal(client.decode(server._response(*rows)),
+                       pts[gidx[i]].astype(object)), card)
+    GRAPHS[f"{name} sharded"].update(mesh_graph_rows(
+        f"{name} sharded", server, ref, gqs[:2], card))
+    del db, resp, want, server, ref
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2182,20 +2347,35 @@ def dist_pack_implicit(seed: int, card: str, mesh) -> dict:
     idb = random_implicit_db(params, rng, device="cuda")
     client = SpiralClient(params, seed=seed, device="cuda")
     pub = client.setup()
-    q = client.query(int(rng.integers(0, params.total_n)))
+    qs = [client.query(int(i))
+          for i in rng.integers(0, params.total_n, GRAPH_QUERIES)]
+    q = qs[0]
     torch.cuda.synchronize()
+    server = SpiralServer(params, idb, pub, mesh=mesh)
     (resp, tm), paths[f"{name} implicit sharded"] = count_launches(
-        f"{name} implicit sharded", lambda: SpiralServer(
-            params, idb, pub, mesh=mesh).process_query(q), IMPLICIT_PATH,
-        card)
-    want, tm_ref = SpiralServer(params, idb, pub).process_query(q)
+        f"{name} implicit sharded", lambda: server.process_query(q),
+        IMPLICIT_PATH, card)
+    ref = SpiralServer(params, idb, pub)
+    want, tm_ref = ref.process_query(q)
     same = same_rows(resp, want)
     print(f"{name} implicit sharded (mesh of 1, {idb.num_chunks} chunks): "
           f"rows equal the unsharded server's={same}; "
           f"{tm.total_us / 1e3:.3f} ms against {tm_ref.total_us / 1e3:.3f} "
-          f"ms (cuda events) [{card}]", flush=True)
+          f"ms (stage graphs) [{card}]", flush=True)
     if not same:
         raise SystemExit(f"{name} implicit sharded: rows differ")
+    # the slab is random: each query's served rows must equal its eager
+    # rows; a sharded batch over an implicit slab raises, so no batch
+    eager = [[x.cpu() for x in server._run_eager(x)] for x in qs]
+    GRAPHS[f"{name} implicit sharded"] = check_graph_serving(
+        f"{name} implicit sharded (mesh of 1)", server, qs, lambda i, rows:
+        all(torch.equal(a, b) for a, b in zip(rows, eager[i])), card,
+        batch=False)
+    GRAPHS[f"{name} implicit sharded"].update(mesh_graph_rows(
+        f"{name} implicit sharded", server, ref, qs[:2], card))
+    del server, ref
+    gc.collect()
+    torch.cuda.empty_cache()
 
     world = DIST_BATCH_WORLD
 
@@ -2276,6 +2456,7 @@ def run_dist(seed: int, card: str) -> dict:
         if rc != 0 or len(rows) != 1 or not rows[0]["correct"]:
             raise SystemExit(f"harness dist: rc {rc}, rows {rows}")
     finally:
+        gc.collect()     # graphs holding a collective go before the group
         dist.destroy_process_group()
     return paths
 

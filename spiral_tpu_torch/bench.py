@@ -18,8 +18,9 @@ database bytes over the headline seconds, vs_baseline its ratio to the
 reference's 165.7 MB/s.
 
 detail.stage_basis names the stage fields' basis: "cuda_graph_prefixes"
-(device_stage_times on the card), "cuda_events" (process_query on the
-card) or "host_clock" (a CPU run).  A direct (stream) query's
+(device_stage_times on the card), "cuda_graph_stages" (process_query on
+the card: CUDA events between the replays of its per-stage graphs) or
+"host_clock" (a CPU run).  A direct (stream) query's
 reconstruction is timed in expansion_us, where bench.py's JAX server
 counts it in composition_us; stage_basis says so for such a query.
 detail.serving names how the served, pipelined and batch times were
@@ -168,7 +169,7 @@ def stage_fields(server, query, pack: bool, device: torch.device,
             "modswitch_us": round(st.modswitch_us),
             "fused_total_us": round(st.total_us),
         }
-        basis = "cuda_events" if cuda else "host_clock"
+        basis = "cuda_graph_stages" if cuda else "host_clock"
     if query.packed_b is None:
         basis += ("; a direct query's reconstruction is in expansion_us "
                   "(bench.py's JAX server counts it in composition_us)")

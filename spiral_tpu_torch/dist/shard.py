@@ -24,6 +24,12 @@ package:
 Expansion, composition and conversion work on query-sized data and run
 replicated either way.  Every rank runs the same calls in the same order:
 each collective here is entered by every rank of the mesh's "db" group.
+``all_gather_tiled`` and ``psum_mod`` make no host sync, so on NCCL they
+can sit inside a CUDA graph capture (the servers' graphs, graphs.py),
+once the group's communicator exists: its first collective makes it,
+and the servers' eager warm run before a capture is that collective.  A
+graph holding one is itself a collective: every rank replays it, in the
+same order.  gloo collectives cannot be captured.
 """
 from __future__ import annotations
 

@@ -16,9 +16,11 @@ once over the F survivors.  Expansion, composition and conversion are a
 SpiralServer's, run once per query; process_query_fused runs them before
 its clock starts and times first dim + fold + modswitch, as the JAX
 server's does (spiral_tpu/factored.py:82-85, 132-147): on a CUDA server
-that tail is one replay of its CUDA graph, the query stages' outputs
-staged into the graph's static inputs (graphs.py's GraphRunner).
-_run_single serves the whole query as SpiralServer's does.
+the query stages are a chain of three CUDA graphs, one per stage, and the
+tail one replay of its CUDA graph, the query stages' outputs staged into
+its static inputs (graphs.py's GraphRunner).  _run_single and
+process_query (its stage chain) serve the whole query as SpiralServer's
+do.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch
 from .params import Params
 from .crypto.decode import modswitch_device, responses_from_device_rows
 from .graphs import Staged, no_mark
-from .pir import SpiralClient, SpiralServer
+from .pir import SpiralClient, SpiralServer, query_sources
 from .server.db import EncodedDb, encode_db
 from .server.fold import fold_rounds
 
@@ -62,6 +64,7 @@ def encode_factored_db(pts: np.ndarray | Iterable[np.ndarray],
     return EncodedDb(data=data, params=params)
 
 
+QUERY_STAGES = ("expansion", "composition", "conversion")
 TAIL_STAGES = ("first_multiply", "folding", "modswitch")
 
 
@@ -104,15 +107,18 @@ class FactoredSpiralServer(SpiralServer):
 
     def process_query_fused(self, query):
         """The serving path (spiral_tpu/factored.py:132-147): expansion,
-        composition and conversion first, untimed; then first dim, fold and
-        modulus switch (on a CUDA server one replay of the tail's graph,
+        composition and conversion first, untimed (on a CUDA server a
+        chain of their three graphs); then first dim, fold and modulus
+        switch (on a CUDA server one replay of the tail's graph, both
         captured on first use) once warm and once timed on the host clock
         from the staging of its inputs until the rows are on the host.
         -> (list of F Responses, seconds)."""
-        first_b, gsw_b = self.query_scalars_batch([query])
-        C_reg = self.compose(first_b[0])
-        q_pos, q_neg = self.convert(gsw_b[0])
-        sources = [Staged.whole(t) for t in (C_reg, q_pos, q_neg)]
+        direct, sources = query_sources([query])
+        stages = self.graphs.run(
+            ("query_stages", direct, 1),
+            lambda w, b, mark: self._query_stages(w, b, direct, mark),
+            sources, QUERY_STAGES, chain=True)
+        sources = [Staged.whole(t) for t in stages]
 
         def tail():
             return [x.cpu() for x in self.graphs.run(

@@ -1,27 +1,40 @@
-"""Serving through CUDA graphs: the counterpart of the JAX package's one
-jitted program per query form and batch size (spiral_tpu/pir.py:353-425
-``full_packed`` / ``full_direct`` and their batch forms, pack.py:501-625,
-factored.py:82-85).
+"""Serving through CUDA graphs: the counterpart of the JAX package's
+compiled programs, one jitted program per query form and batch size
+(spiral_tpu/pir.py:353-425 ``full_packed`` / ``full_direct`` and their
+batch forms, pack.py:501-625, factored.py:82-85) and one per stage for
+``process_query`` (pir.py:344-351 ``_stage_*``, pack.py:467-473).
 
 A server owns one GraphRunner.  ``run(key, body, sources, stages)``
-answers one call of the path `key` names (the path, the query form, the
-batch size), as jax.jit compiles once per shape:
+answers one call of the program `key` names (the path, the query form,
+the batch size), as jax.jit compiles once per shape:
 
 - On first use of `key` it allocates the static input tensors and copies
   the call's inputs into them, runs the path once eagerly (on a side
   stream on the card, so that the device constants the pipeline builds
-  lazily, and the kernel library's first build, land outside the graph's
-  pool) and, on a CUDA device, captures ``body`` as a CUDA graph in the
-  server's one memory pool.
+  lazily, the kernel library's first build and a process group's first
+  collective, which makes its communicator, land outside the graphs'
+  pool) and, on a CUDA device, captures ``body`` in the server's one
+  memory pool: as one CUDA graph, or for a stage chain (``chain=True``)
+  as one graph per stage, each cut where the body marks the end of a
+  stage.  A stage's inputs are then the earlier stages' outputs where
+  their capture left them, with no copy between stages.
 - Every call copies its inputs into the static tensors on the current
-  stream (so after the previous replay), replays the graph, and returns
-  clones of the graph's static outputs made on the same stream: a later
-  call's inputs never reach an earlier call's replay, and its outputs
-  never alias an earlier call's.
+  stream (so after the previous replay), replays the graphs in order,
+  calling ``mark`` after each, and returns clones of the static outputs
+  made on the same stream: a later call's inputs never reach an earlier
+  call's replay, and its outputs never alias an earlier call's.
+
+A chain is replayed whole, from its first stage, in every call, and no
+other graph replays between its stages: the pool is shared, so another
+graph's replay may write over the addresses of a stage's outputs that a
+later stage reads (the clone at the end guards the last stage's).
 
 A body takes only its static tensors and a stage mark: nothing of a query
 reaches the graph but through them.  A capture that fails raises, naming
-the path and the stage it was in; nothing falls back to eager serving.
+the server, the path and the stage it was in; nothing falls back to
+eager serving.  Captures run in the thread-local error mode, so that
+another thread's event queries (a process group's watchdog) cannot break
+them.
 
 On a CPU server (the caller's choice, as the tests make it) nothing is
 captured, so no warm run is made: the runner runs ``body`` eagerly on the
@@ -101,35 +114,34 @@ def warm_up(run: Callable[[], object], device: torch.device):
 
 
 class Graph:
-    """run() captured as a CUDA graph, after one eager warm run (warm_up;
-    `warm` in place of run where given): ``outputs`` (the tensors run()
-    returned in the capture, written by each replay), ``launches`` (the
-    kernel launches one replay makes), ``capture_s`` (host seconds of the
-    capture) and ``pool_bytes`` (memory_reserved added by the capture, the
-    graph's share of its pool).  A failed capture raises RuntimeError
-    naming what(), called when it fails."""
+    """One CUDA graph, capturing from when it is made until end():
+    ``launches`` (the kernel launches one replay makes), ``capture_s``
+    (host seconds of the capture) and ``pool_bytes`` (memory_reserved
+    added by the capture, the graph's share of its pool)."""
 
-    def __init__(self, run: Callable[[], tuple], what: Callable[[], str],
-                 device: torch.device, pool=None, warm=None):
-        warm_up(warm or run, device)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        before = dict(kernels.LAUNCHES)
+    def __init__(self, device: torch.device, pool=None):
+        self.device = device
         self.graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
+        self._launches = dict(kernels.LAUNCHES)
+        self._reserved = torch.cuda.memory_reserved(device)
+        self._t0 = time.perf_counter()
+        self.capturing = True
+        self.graph.capture_begin(pool=pool,
+                                 capture_error_mode="thread_local")
+
+    def end(self) -> None:
+        """End the capture (a failed capture raises here too)."""
+        self.capturing = False
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
-                self.outputs = tuple(run())
-        except RuntimeError as e:
-            raise RuntimeError(f"CUDA graph capture of {what()} failed: "
-                               f"{e}") from e
+            self.graph.capture_end()
         finally:
+            before = self._launches
             self.launches = {k: v - before[k]
                              for k, v in kernels.LAUNCHES.items()}
             kernels.LAUNCHES.update(before)
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.capture_s = time.perf_counter() - self._t0
+        self.pool_bytes = (torch.cuda.memory_reserved(self.device) -
+                           self._reserved)
 
     def replay(self) -> None:
         self.graph.replay()
@@ -137,13 +149,53 @@ class Graph:
             kernels.LAUNCHES[k] += n
 
 
+def capture(run: Callable[[Callable[[], None]], tuple], stages: int,
+            what: Callable[[int], str], device: torch.device, pool=None,
+            chain: bool = False) -> tuple[list[Graph], tuple]:
+    """run(mark), after the caller's warm run, captured on a side stream:
+    as one graph, or with `chain` as `stages` graphs, each ending where
+    run calls mark (stage i's graph at its i-th call; run enqueues nothing
+    after its last).  -> (the graphs, the tensors run returned: each
+    replay rewrites them).  A failed capture raises RuntimeError naming
+    what(the number of stages run marked before it failed)."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    graphs, marked = [], []
+
+    def mark():
+        if chain:
+            graphs[-1].end()
+            if len(marked) + 1 < stages:
+                graphs.append(Graph(device, pool))
+        marked.append(1)
+
+    with torch.cuda.stream(torch.cuda.Stream(device)):
+        graphs.append(Graph(device, pool))
+        try:
+            out = tuple(run(mark))
+            if not chain:
+                graphs[-1].end()
+            elif len(marked) != stages:
+                raise RuntimeError(f"{len(marked)} stage marks for "
+                                   f"{stages} stages")
+        except RuntimeError as e:
+            if graphs[-1].capturing:
+                try:
+                    graphs[-1].end()
+                except RuntimeError:
+                    pass
+            raise RuntimeError(f"CUDA graph capture of {what(len(marked))} "
+                               f"failed: {e}") from e
+    return graphs, out
+
+
 class _Program:
-    """A path's static inputs and, on the card, its graph; its static
-    outputs."""
+    """A path's static inputs and, on the card, its graphs (one, or one per
+    stage of a chain); its static outputs."""
 
     def __init__(self, inputs: list[torch.Tensor]):
         self.inputs = inputs
-        self.graph: Graph | None = None
+        self.graphs: list[Graph] = []
         self.outputs: tuple | None = None
         self.warm_out = None    # what the warm run returned
         self.warm_s: float | None = None      # the card's warm run
@@ -162,12 +214,14 @@ class GraphRunner:
         self.pool = None
 
     def prepare(self, key: tuple, body: Callable, sources: list[Staged],
-                stages: tuple, warm: Callable | None = None):
+                stages: tuple, warm: Callable | None = None,
+                chain: bool = False):
         """Make `key`'s program unless it exists: its static inputs from
         `sources` and, on the card, one warm run (`warm`(*inputs) where
         given, its result kept as the program's ``warm_out``, else the
-        body) and the capture of body(*inputs, mark), whose marks after
-        each of `stages` name the stage a failed capture was in."""
+        body) and the capture of body(*inputs, mark), which calls mark
+        after each of `stages`: one graph, or with `chain` one graph per
+        stage.  A failed capture names the stage it was in."""
         if key in self.programs:
             return
         prog = _Program(static_inputs(sources, self.device))
@@ -175,53 +229,67 @@ class GraphRunner:
             self.programs[key] = prog
             return
         t0 = time.perf_counter()
+        if warm is None:
+            warm_up(lambda: body(*prog.inputs, no_mark), self.device)
+        else:
+            prog.warm_out = warm_up(lambda: warm(*prog.inputs), self.device)
+        warm_s = time.perf_counter() - t0
 
-        def warm_run():
-            if warm is None:
-                body(*prog.inputs, no_mark)
-            else:
-                prog.warm_out = warm(*prog.inputs)
-
-        marked = []
-
-        def what() -> str:
-            stage = stages[min(len(marked), len(stages) - 1)]
-            return f"{self.owner} path {key} in stage {stage}"
+        def what(i: int) -> str:
+            return (f"{self.owner} path {key} in stage "
+                    f"{stages[min(i, len(stages) - 1)]}")
 
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        prog.graph = Graph(lambda: body(*prog.inputs,
-                                        lambda: marked.append(1)),
-                           what, self.device, self.pool, warm_run)
-        prog.outputs = prog.graph.outputs
-        prog.warm_s = time.perf_counter() - t0 - prog.graph.capture_s
+        prog.graphs, prog.outputs = capture(
+            lambda mark: body(*prog.inputs, mark), len(stages), what,
+            self.device, self.pool, chain)
+        prog.warm_s = warm_s
         self.programs[key] = prog
 
-    def run(self, key: tuple, body: Callable, sources: list[Staged],
-            stages: tuple, mark: Callable[[], None] = no_mark) -> tuple:
-        """Serve one call of `key` (prepare on first use): stage `sources`
-        into the static inputs, replay the graph (on the CPU: run body,
-        `mark` called after each stage, and write the static outputs), and
-        return clones of the static outputs."""
-        self.prepare(key, body, sources, stages)
-        prog = self.programs[key]
-        for s, t in zip(sources, prog.inputs):
+    def stage(self, key: tuple, sources: list[Staged]) -> None:
+        """Copy `sources` into `key`'s static inputs."""
+        for s, t in zip(sources, self.programs[key].inputs):
             s.copy_into(t)
-        if prog.graph is not None:
-            prog.graph.replay()
-        elif prog.outputs is None:
-            prog.outputs = tuple(body(*prog.inputs, mark))
-        else:
-            for o, r in zip(prog.outputs, body(*prog.inputs, mark)):
-                o.copy_(r)
+
+    def replay(self, key: tuple, body: Callable,
+               mark: Callable[[], None] = no_mark) -> tuple:
+        """Run `key`'s program on its staged inputs: replay its graphs,
+        `mark` called after each (on the CPU: run body, `mark` called
+        after each stage, and write the static outputs), and return
+        clones of the static outputs."""
+        prog = self.programs[key]
+        for graph in prog.graphs:
+            graph.replay()
+            mark()
+        if not prog.graphs:
+            outs = tuple(body(*prog.inputs, mark))
+            if prog.outputs is None:
+                prog.outputs = outs
+            else:
+                for o, r in zip(prog.outputs, outs):
+                    o.copy_(r)
         return tuple(x.clone() for x in prog.outputs)
 
+    def run(self, key: tuple, body: Callable, sources: list[Staged],
+            stages: tuple, mark: Callable[[], None] = no_mark,
+            chain: bool = False) -> tuple:
+        """Serve one call of `key`: prepare on first use, stage `sources`
+        and replay -> clones of the static outputs."""
+        self.prepare(key, body, sources, stages, chain=chain)
+        self.stage(key, sources)
+        return self.replay(key, body, mark)
+
     def stats(self) -> dict:
-        """{key: {"warm_s", "capture_s", "pool_bytes"}} of the programs
-        made (None on the CPU)."""
+        """{key: {"warm_s", "capture_s", "pool_bytes", "graphs"}} of the
+        programs made, a chain's capture seconds and pool bytes summed over
+        its stages (None on the CPU, with 0 graphs)."""
         return {k: {"warm_s": p.warm_s,
-                    "capture_s": p.graph and p.graph.capture_s,
-                    "pool_bytes": p.graph and p.graph.pool_bytes}
+                    "capture_s": sum(g.capture_s for g in p.graphs)
+                    if p.graphs else None,
+                    "pool_bytes": sum(g.pool_bytes for g in p.graphs)
+                    if p.graphs else None,
+                    "graphs": len(p.graphs)}
                 for k, p in self.programs.items()}
 
     def release(self) -> None:

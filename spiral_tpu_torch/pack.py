@@ -8,8 +8,11 @@ one (out_n+1) x out_n matrix ct before the two-modulus switch.
 PackServer.process_query runs: expansion (K1, K8a, K4), conversion to GSW
 (``regev_to_simple_gsw``), the first-dimension multiply with n1 = 2 query
 rows (K2) and its inverse NTT, the unsigned fold rounds (K6), packing (K7)
-and its inverse NTT, and the modulus switch.  On a CUDA device each stage
-is timed with CUDA events.  _run_single serves a query as pir.py's
+and its inverse NTT, and the modulus switch.  On a CUDA server the six
+stages are a chain of CUDA graphs, one per stage (the JAX stage jits,
+spiral_tpu/pack.py:467-473; pir.serve_stages), each timed by CUDA events
+between the replays; on the CPU the same chain runs eagerly under the
+host clock.  _run_single serves a query as pir.py's
 servers do: on a CUDA server one replay of a CUDA graph of the whole chain
 (the JAX ``_run_single`` chains its stage jits with no sync,
 spiral_tpu/pack.py:604-625), captured on first use per query form; on the
@@ -23,9 +26,9 @@ an ImplicitDb (served one query at a time, as in the JAX package).  With
 (trial, position) columns: each rank keeps only its column block (a
 ShardedDb) and streams it through K2, the K2 outputs are gathered along
 the column axis, and fold (K6) and pack (K7) run replicated on every rank
-(spiral_tpu/pack.py:328-363, 409-425), eagerly (its collectives are not
-captured); an implicit database with a mesh raises ValueError, as in the
-JAX package.
+(spiral_tpu/pack.py:328-363, 409-425), served through the same graphs as
+an unsharded server (on NCCL the all-gather captured inside them); an
+implicit database with a mesh raises ValueError, as in the JAX package.
 
 Where ``direct_upload_first`` holds (SpiralStreamPack) the client uploads
 every ct directly: dim0 first-dimension scalars, then for each GSW digit
@@ -57,7 +60,7 @@ from .crypto.query import (Query, encrypt_b_batch, gsw_digit_values,
 from .dist import shard
 from .graphs import GraphRunner, no_mark
 from .pir import (ServerTimings, StageClock, db_tensor, serve_batch,
-                  serve_fused, serve_single, stack_queries)
+                  serve_fused, serve_single, serve_stages, stack_queries)
 from .server import db as db_mod
 from .server.db import EncodedDb, ImplicitDb, bitrev_perm
 from .server.expand import coefficient_expansion, neg_monomial_ntts
@@ -258,13 +261,12 @@ class PackServer:
                                                params.poly_len, self.device))
         neg_monomial_ntts(params.poly_len, self.device)   # made once here
         self.graphs = GraphRunner(self.device, type(self).__name__)
+        self.stages = PACK_STAGES
 
     @property
     def serving(self) -> str:
-        """"cuda_graph" (a CUDA server) or "eager" (a CPU or a mesh
-        server)."""
-        return "cuda_graph" if self.device.type == "cuda" and \
-            self.mesh is None else "eager"
+        """"cuda_graph" (a CUDA server) or "eager" (a CPU server)."""
+        return "cuda_graph" if self.device.type == "cuda" else "eager"
 
     def release_graphs(self) -> None:
         """Free the server's CUDA graphs and their pool."""
@@ -415,15 +417,14 @@ class PackServer:
     def _run_single(self, query: Query):
         """One query served (pir.serve_single): fresh response rows on the
         device."""
-        return serve_single(self, query, PACK_STAGES)
+        return serve_single(self, query)
 
     _response = staticmethod(response_from_device_rows)
 
     def process_query(self, query: Query):
         """Answer one query of either form: (Response, ServerTimings), the
-        stages run eagerly between CUDA events."""
-        clock = StageClock(self.device)
-        rows = self._run_eager(query, clock.mark)
+        stages timed one by one (pir.serve_stages)."""
+        rows, clock = serve_stages(self, query)
         return self._response(*rows), _timings(clock)
 
     def process_query_fused(self, query: Query):
@@ -433,8 +434,8 @@ class PackServer:
 
     def process_query_batch(self, queries: list[Query]):
         """Answer a batch of queries of one form: (list[Response],
-        seconds), the window from the staging of the batch (a mesh server:
-        its first stage) until the response rows are on the host; a CUDA
+        seconds), the window from the staging of the batch until the
+        response rows are on the host; a CUDA
         server replays the graph for (form, B), captured on first use
         after an eager run whose stage times are left in
         ``last_batch_timings``.  Over an implicit database, or for a batch
@@ -443,7 +444,7 @@ class PackServer:
             raise ValueError(
                 "batched pack serving needs an encoded database, not an "
                 "implicit one")
-        return serve_batch(self, queries, PACK_STAGES, _timings)
+        return serve_batch(self, queries, _timings)
 
 
 def _timings(clock: StageClock) -> ServerTimings:

@@ -7,9 +7,14 @@ SpiralServer.process_query runs the stages of the JAX ``full_packed`` /
 conversion, first-dim multiply + inverse NTT, folding, modulus switch.  A
 direct query's cts are rebuilt from its seed, and a part of the query
 uploaded as subround cts is expanded g rounds (``reconstruct_direct``).
-On a CUDA device each stage is timed with CUDA events; on the CPU with
-the host clock.  process_query_batch runs the same stages over a batch of
-queries of one form (the JAX ``full_packed_batch`` / ``full_direct_batch``):
+As the JAX server runs each stage as its own jitted program
+(spiral_tpu/pir.py:344-351), a CUDA server runs them as a chain of CUDA
+graphs, one per stage (graphs.GraphRunner, key ("stages", form, 1)),
+each stage timed by CUDA events recorded between the replays: its
+graph's device time and one launch.  On the CPU the same chain runs
+eagerly under the host clock.  process_query_batch runs the same stages
+over a batch of queries of one form (the JAX ``full_packed_batch`` /
+``full_direct_batch``):
 the database streams once per batch (K2 with all B queries' rows) and the
 fold is one K5 launch per round.  The server takes an EncodedDb or an
 ImplicitDb, whose slab K2 streams num_chunks times.
@@ -24,10 +29,10 @@ eagerly.  process_query_fused serves a query twice through it and times
 the second run on the host until the response rows are on the host;
 process_query_batch serves a batch of B with one replay of the graph for
 (form, B) (the JAX ``full_*_batch``), after one eager run with the stage
-split when that graph is captured.  process_query (the per-stage
-CUDA-event split) and final_ciphertext, which stops before the modulus
-switch, run eagerly.  A server's graphs live as long as it does, or
-until release_graphs().
+split when that graph is captured.  final_ciphertext, which stops before
+the modulus switch, runs eagerly, and so does _run_eager, the eager
+reference of every served path.  A server's graphs live as long as it
+does, or until release_graphs().
 
 With ``mesh`` (a torch.distributed DeviceMesh with a "db" dimension,
 dist/shard.py) the database is row-sharded: each rank streams its column
@@ -41,7 +46,12 @@ multihost.ingest_and_serve never holds more than the block.  An implicit
 slab is replicated instead and each rank streams its share of the
 chunks.  First dim and fold are then one stage, timed as
 first_multiply_us with folding_us 0, as the JAX mesh server reports them.
-A mesh server serves eagerly: its collectives are not captured.
+A mesh server serves through the same graphs (the JAX package jits its
+sharded step, spiral_tpu/dist/shard.py:142): on NCCL the all-gather is
+captured inside them, its communicator made by the warm run before the
+first capture, and every rank captures and replays the same graphs in
+the same order.  gloo collectives cannot be captured, so on the CPU a
+mesh server runs the same runner eagerly.
 """
 from __future__ import annotations
 
@@ -148,6 +158,9 @@ class StageClock:
 
 SPIRAL_STAGES = ("expansion", "composition", "conversion", "first_multiply",
                  "folding", "modswitch")
+# under a mesh first dim and fold are one stage (the JAX _stage_serve_db)
+SHARDED_STAGES = ("expansion", "composition", "conversion", "serve_db",
+                  "modswitch")
 
 
 def serve_fused(server, query: Query):
@@ -236,13 +249,13 @@ class SpiralServer:
         # query allocates it
         self._fold_g = mxu_workspace(params, self.device)
         self.graphs = GraphRunner(self.device, type(self).__name__)
+        self.stages = SPIRAL_STAGES if mesh is None else SHARDED_STAGES
 
     @property
     def serving(self) -> str:
-        """How _run_single and process_query_batch serve: "cuda_graph" (a
-        CUDA server) or "eager" (a CPU or a mesh server)."""
-        return "cuda_graph" if self.device.type == "cuda" and \
-            self.mesh is None else "eager"
+        """How the server serves: "cuda_graph" (a CUDA server) or "eager"
+        (a CPU server)."""
+        return "cuda_graph" if self.device.type == "cuda" else "eager"
 
     def release_graphs(self) -> None:
         """Free the server's CUDA graphs and their pool; the next call of
@@ -358,17 +371,23 @@ class SpiralServer:
                         device="cuda") -> EncodedDb:
         return encode_db(pts, params, torch.device(device))
 
-    def _final(self, seeds, bs, direct: bool, mark=no_mark) -> torch.Tensor:
-        """The stages of one query (its seeds or seed_words and b rows (1,
-        n, 1, 1, 2, d)) up to the fold, `mark` called after each (first
-        dim and fold one stage under a mesh): the folded ct, coefficient
-        domain."""
+    def _query_stages(self, seeds, bs, direct: bool, mark=no_mark):
+        """Expansion, composition and conversion of one query (its seeds or
+        seed_words and b rows (1, n, 1, 1, 2, d)), `mark` called after
+        each: C_reg, q_pos, q_neg."""
         first_b, gsw_b = self._scalars(seeds, bs, direct)
         mark()
         C_reg = self.compose(first_b[0])
         mark()
         q_pos, q_neg = self.convert(gsw_b[0])
         mark()
+        return C_reg, q_pos, q_neg
+
+    def _final(self, seeds, bs, direct: bool, mark=no_mark) -> torch.Tensor:
+        """The stages of one query up to the fold, `mark` called after each
+        (first dim and fold one stage under a mesh): the folded ct,
+        coefficient domain."""
+        C_reg, q_pos, q_neg = self._query_stages(seeds, bs, direct, mark)
         cts = self.first_dim(C_reg)
         if self.mesh is None:
             mark()
@@ -414,7 +433,7 @@ class SpiralServer:
     def _run_single(self, query: Query):
         """One query served (serve_single): fresh response rows on the
         device."""
-        return serve_single(self, query, SPIRAL_STAGES)
+        return serve_single(self, query)
 
     _response = staticmethod(response_from_device_rows)
 
@@ -426,12 +445,11 @@ class SpiralServer:
 
     def process_query(self, query: Query):
         """Answer one query of either form: (Response, ServerTimings), the
-        stages run eagerly between CUDA events.  A direct query's
+        stages timed one by one (serve_stages).  A direct query's
         reconstruction (and any part's expansion) is timed as its
         expansion_us; the JAX server leaves that field at 0 for direct
         queries, the time falling into its composition."""
-        clock = StageClock(self.device)
-        rows = self._run_eager(query, clock.mark)
+        rows, clock = serve_stages(self, query)
         return self._response(*rows), _timings(clock, self.mesh is not None)
 
     def process_query_fused(self, query: Query):
@@ -452,42 +470,48 @@ class SpiralServer:
         if self.mesh is not None and isinstance(self.db, ImplicitDb):
             raise ValueError("a sharded batch over an implicit database is "
                              "not supported")
-        return serve_batch(self, queries, SPIRAL_STAGES,
+        return serve_batch(self, queries,
                            lambda clock: _timings(clock,
                                                   self.mesh is not None))
 
 
-def serve_single(server, query: Query, stages: tuple):
+def serve_single(server, query: Query):
     """A server's _run_single: on a CUDA server one replay of the graph of
     the query's form (captured on first use), on a CPU server the same
-    staged runner run eagerly, on a mesh server the eager stages
-    (server._run_eager).  -> fresh response rows on the device."""
-    if server.mesh is not None:
-        return server._run_eager(query)
+    staged runner run eagerly.  -> fresh response rows on the device."""
     direct, sources = query_sources([query])
     return server.graphs.run(
         ("single", direct, 1),
-        lambda w, b, mark: server._rows(w, b, direct, mark), sources, stages)
+        lambda w, b, mark: server._rows(w, b, direct, mark), sources,
+        server.stages)
 
 
-def serve_batch(server, queries: list[Query], stages: tuple,
+def serve_stages(server, query: Query):
+    """A server's process_query: the chain of server.stages for the
+    query's form (captured on first use; on a CPU server run eagerly),
+    its inputs staged, then a StageClock started and marked after each
+    stage.  -> (fresh response rows on the device, the clock)."""
+    direct, sources = query_sources([query])
+    key = ("stages", direct, 1)
+
+    def body(words, bs, mark):
+        return server._rows(words, bs, direct, mark)
+
+    server.graphs.prepare(key, body, sources, server.stages, chain=True)
+    server.graphs.stage(key, sources)
+    clock = StageClock(server.device)
+    return server.graphs.replay(key, body, clock.mark), clock
+
+
+def serve_batch(server, queries: list[Query],
                 timings) -> tuple[list[Response], float]:
     """A server's process_query_batch: (responses, seconds) from the
-    staging (a mesh server: its first stage) until the responses are on
-    the host.  A mesh server runs server._batch_rows eagerly between stage
-    marks.  Otherwise the GraphRunner serves it: on a CUDA server, on the
-    first call for (form, B), an untimed eager run between stage marks,
-    its ServerTimings by `timings` kept with the program, and the capture;
-    then one timed replay.  On a CPU server the runner's eager run is
-    marked itself.  The stage times go to server.last_batch_timings."""
-    if server.mesh is not None:
-        t0 = time.perf_counter()
-        clock = StageClock(server.device)
-        responses = responses_from_device_rows(
-            *server._run_batch(queries, clock.mark))
-        seconds = time.perf_counter() - t0
-        server.last_batch_timings = timings(clock)
-        return responses, seconds
+    staging until the responses are on the host.  The GraphRunner serves
+    it: on a CUDA server, on the first call for (form, B), an untimed
+    eager run between stage marks, its ServerTimings by `timings` kept
+    with the program, and the capture; then one timed replay.  On a CPU
+    server the runner's eager run is marked itself.  The stage times go to
+    server.last_batch_timings."""
     direct, sources = query_sources(queries)
     key = ("batch", direct, len(queries))
 
@@ -499,12 +523,13 @@ def serve_batch(server, queries: list[Query], stages: tuple,
         body(words, bs, clock.mark)
         return timings(clock)
 
-    server.graphs.prepare(key, body, sources, stages, warm)
+    server.graphs.prepare(key, body, sources, server.stages, warm)
     prog = server.graphs.programs[key]
     t0 = time.perf_counter()
-    clock = StageClock(server.device) if prog.graph is None else None
-    responses = responses_from_device_rows(*server.graphs.run(
-        key, body, sources, stages, clock.mark if clock else no_mark))
+    server.graphs.stage(key, sources)
+    clock = None if prog.graphs else StageClock(server.device)
+    responses = responses_from_device_rows(*server.graphs.replay(
+        key, body, clock.mark if clock else no_mark))
     seconds = time.perf_counter() - t0
     server.last_batch_timings = timings(clock) if clock else prog.warm_out
     return responses, seconds

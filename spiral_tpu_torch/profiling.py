@@ -94,10 +94,13 @@ def prefix_times(server: SpiralServer, query, iters: int = 8,
         run = lambda d=depth: _prefix(server, words, bs, d)  # noqa: E731
         if cuda:
             # the previous prefix's graph and outputs are freed here
-            graph = graphs.Graph(
-                run, lambda s=stage: f"the prefix ending at {s}",
+            graph = out = None
+            graphs.warm_up(run, server.device)
+            (graph,), out = graphs.capture(
+                lambda mark, r=run: r(), 1,
+                lambda _, s=stage: f"the prefix ending at {s}",
                 server.device)
-            run, out = graph.graph.replay, graph.outputs
+            run = graph.graph.replay
         times.append(_seconds_per_run(run, iters, reps, cuda))
     rows = [x.cpu() for x in (out if cuda else run())]
     return times, rows

@@ -214,6 +214,23 @@ def test_sharded_spiral_matches_jax_mesh(run):
         assert info["spiral_folding_us"] == 0
 
 
+def test_sharded_served_in_turn_matches_jax_mesh(run):
+    """A mesh server serves through the GraphRunner (eagerly on gloo): two
+    different queries in turn through _run_single, a batch of both and
+    the second through process_query's stage chain each give the JAX
+    mesh server's rows for their query, with first dim and fold one stage
+    (folding_us 0)."""
+    want = run[1]["spiral_batch_rows"]
+    for arrays, info in _case(run, "served"):
+        np.testing.assert_array_equal(arrays["served_rows"], want)
+        np.testing.assert_array_equal(arrays["served_batch_rows"], want)
+        np.testing.assert_array_equal(arrays["served_stages_rows"], want[1])
+        assert info["served_folding_us"] == 0
+        assert info["served_programs"] == [["batch", False, 2],
+                                           ["single", False, 1],
+                                           ["stages", False, 1]]
+
+
 def test_sharded_spiral_batch_matches_jax_mesh(run):
     for arrays, info in _case(run, "spiral"):
         np.testing.assert_array_equal(arrays["spiral_batch_rows"],

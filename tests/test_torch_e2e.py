@@ -81,6 +81,8 @@ def test_torch_server_answers_jax_client(jax_run, monkeypatch, cfg,
         q.seed, np.asarray(q.packed_b), "cpu"))
     for a, b in zip(interop.response_rows(got), interop.response_rows(want)):
         np.testing.assert_array_equal(a, b)
+    # process_query ran the stage chain
+    assert list(tserver.graphs.programs) == [("stages", False, 1)]
     keys = interop.secret_keys(np.asarray(client.keys.Sp.data),
                                np.asarray(client.keys.sr.data),
                                client.keys.Sp_centered,

@@ -118,8 +118,11 @@ def test_factored_rows_match_jax(jax_run, F, path):
         _same(got, run[F]["fused"])
     if path == "process_query":
         assert info.first_multiply_us > 0 and info.modswitch_us > 0
+        assert list(server.graphs.programs) == [("stages", False, 1)]
     else:
         assert info > 0
+        assert list(server.graphs.programs) == [("query_stages", False, 1),
+                                                ("tail", False, 1)]
     keys = run["client"].keys
     client = pir.SpiralClient(tp, device="cpu")
     client.keys = interop.secret_keys(

@@ -10,6 +10,8 @@ factored server's served tail.  All arithmetic is exact: the tolerance is
 one intra-op thread in this module (restored after it): the tiny
 presets' ops gain nothing from more, and the suite's parallel workers
 share the cores."""
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,11 +23,12 @@ from spiral_tpu.crypto.publicparams import PublicParams as JPublicParams
 from spiral_tpu.crypto.query import Query as JQuery
 from spiral_tpu.params import preset as jpreset
 from spiral_tpu.server.db import encode_db as j_encode_db
-from spiral_tpu_torch import factored, graphs, interop
+from spiral_tpu_torch import factored, graphs, interop, kernels
 from spiral_tpu_torch.pack import (PackClient, PackServer, encode_pack_db,
                                    random_pack_db)
+from spiral_tpu_torch.crypto.query import seed_words
 from spiral_tpu_torch.params import preset
-from spiral_tpu_torch.pir import SpiralClient, SpiralServer
+from spiral_tpu_torch.pir import SPIRAL_STAGES, SpiralClient, SpiralServer
 from spiral_tpu_torch.server.db import encode_db, random_db
 
 PRESETS = ("tiny", "tiny_pack", "tiny_stream", "tiny_stream_pack")
@@ -76,13 +79,123 @@ def test_pipelined_queries_get_their_own_rows(name):
     assert not torch.equal(outs[0][1], outs[1][1])
     prog = server.graphs.programs[("single", direct, 1)]
     assert list(server.graphs.programs) == [("single", direct, 1)]
-    assert prog.graph is None and server.serving == "eager"
+    assert prog.graphs == [] and server.serving == "eager"
     static = {t.data_ptr() for t in prog.outputs}
     assert not static & {t.data_ptr() for rows in outs for t in rows}
     # the staged inputs hold the last query's b rows
     want = queries[-1].packed_b if not direct else torch.cat(
         [queries[-1].first_b, queries[-1].gsw_b])
     assert torch.equal(prog.inputs[1][0], want)
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_stage_chain_serves_each_query_its_own(name):
+    """Two different queries in turn through process_query (the stage
+    chain, key ("stages", form, 1)), interleaved with _run_single on the
+    same server: each response equals its query's eager rows and decodes,
+    the chain's staged inputs after the second call are that call's own,
+    and the timings hold the path's stages (pack: packing, no
+    composition)."""
+    client, server, pts = _serve(name)
+    queries = [client.query(i) for i in IDXS[1:3]]
+    direct = queries[0].packed_b is None
+    for i, q in zip(IDXS[1:3], queries):
+        resp, timings = server.process_query(q)
+        eager = server._run_eager(q)
+        for got, want in zip(interop.response_rows(resp), eager):
+            np.testing.assert_array_equal(
+                got, interop.to_numpy(want).astype(object))
+        np.testing.assert_array_equal(client.decode(resp),
+                                      pts[i].astype(object))
+        assert _equal_rows(server._run_single(q), eager)
+        pack = "pack" in name
+        assert (timings.packing_us > 0) == pack
+        assert (timings.composition_us > 0) != pack
+        assert timings.total_us > 0
+    prog = server.graphs.programs[("stages", direct, 1)]
+    last = queries[-1]
+    want = last.packed_b if not direct else torch.cat([last.first_b,
+                                                       last.gsw_b])
+    assert torch.equal(prog.inputs[1][0], want)
+    assert torch.equal(prog.inputs[0], seed_words([last.seed], "cpu"))
+    assert prog.graphs == []
+
+
+class _FakeGraph:
+    """torch.cuda.CUDAGraph's capture calls, logged."""
+    log: list = []
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        self.log.append(("begin", pool, capture_error_mode))
+
+    def capture_end(self):
+        self.log.append(("end",))
+
+
+def _fake_cuda(monkeypatch):
+    """Patch the torch.cuda calls graphs.capture makes, so that its cuts
+    run on the CPU: each graph's capture is logged, nothing is recorded."""
+    _FakeGraph.log = []
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device: 0)
+
+
+def test_capture_cuts_a_chain_at_its_marks(monkeypatch):
+    """graphs.capture with chain=True makes one graph per stage, each begun
+    in the runner's pool in the thread-local error mode and ended at its
+    stage's mark, each holding its own stage's kernel launches, which the
+    capture takes back out of kernels.LAUNCHES; without chain the same run
+    is one graph holding them all."""
+    _fake_cuda(monkeypatch)
+
+    def run(mark):
+        for k in ("ntt", "firstdim", "fold"):
+            kernels.LAUNCHES[k] += 1
+            mark()
+        return (torch.zeros(1),)
+
+    before = dict(kernels.LAUNCHES)
+    graphs_, out = graphs.capture(run, 3, str, CPU, pool="p", chain=True)
+    assert dict(kernels.LAUNCHES) == before
+    assert [g.launches[k] for g, k in zip(graphs_, ("ntt", "firstdim",
+                                                     "fold"))] == [1, 1, 1]
+    assert all(sum(g.launches.values()) == 1 for g in graphs_)
+    assert _FakeGraph.log == [("begin", "p", "thread_local"),
+                              ("end",)] * 3
+    assert torch.equal(out[0], torch.zeros(1))
+    (one,), _ = graphs.capture(run, 3, str, CPU)
+    assert sum(one.launches.values()) == 3 and len(_FakeGraph.log) == 8
+    assert dict(kernels.LAUNCHES) == before
+
+
+def test_failed_chain_capture_names_its_stage(monkeypatch):
+    """A stage that fails in the capture raises RuntimeError naming that
+    stage (what(i), i the stages marked before it), after ending the open
+    capture and restoring the launch counts; a body that marks fewer
+    stages than the chain has raises the same way."""
+    _fake_cuda(monkeypatch)
+    before = dict(kernels.LAUNCHES)
+    names = ("expansion", "composition", "conversion")
+
+    def failing(mark):
+        mark()
+        kernels.LAUNCHES["ntt"] += 1
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+    with pytest.raises(RuntimeError, match="capture of composition failed"):
+        graphs.capture(failing, 3, names.__getitem__, CPU, chain=True)
+    assert _FakeGraph.log[-1] == ("end",) and len(_FakeGraph.log) == 4
+    assert dict(kernels.LAUNCHES) == before
+    with pytest.raises(RuntimeError, match="2 stage marks for 3 stages"):
+        graphs.capture(lambda mark: (mark(), mark(), ())[2], 3,
+                       names.__getitem__, CPU, chain=True)
+    assert _FakeGraph.log[-1] == ("end",)
 
 
 @pytest.mark.parametrize("name", PRESETS)
@@ -126,31 +239,53 @@ def _jax_pub(tpub) -> JPublicParams:
                          V=PolyMat(jnp.asarray(f["V"]), True))
 
 
-def test_tiny_rows_equal_jax_run_single():
-    """Four of the port client's queries through _run_single back to back:
-    each query's rows equal one JAX SpiralServer's _run_single rows (its
-    one-dispatch full_packed program) over the same records and public
-    parameters."""
+@pytest.fixture(scope="module")
+def jax_tiny():
+    """(client, server, queries at IDXS, each query's rows from one JAX
+    SpiralServer's _run_single (its one-dispatch full_packed program) over
+    the same records and public parameters) at tiny, made once."""
     client, server, pts = _serve("tiny")
     jp = jpreset("tiny")
     jserver = jpir.SpiralServer(jp, j_encode_db(pts, jp),
                                 _jax_pub(server.pub))
     queries = [client.query(i) for i in IDXS]
-    outs = [server._run_single(q) for q in queries]
-    for q, rows in zip(queries, outs):
+    want = []
+    for q in queries:
         f = interop.query_to_numpy(q)
-        want = jserver._run_single(JQuery(
-            seed=f["seed"], packed_b=jnp.asarray(f["packed_b"])))
-        for got, w in zip(rows, want):
-            np.testing.assert_array_equal(interop.to_numpy(got),
-                                          np.asarray(w))
+        want.append([np.asarray(w) for w in jserver._run_single(JQuery(
+            seed=f["seed"], packed_b=jnp.asarray(f["packed_b"])))])
+    return client, server, queries, want
+
+
+def test_tiny_rows_equal_jax_run_single(jax_tiny):
+    """Four of the port client's queries through _run_single back to back:
+    each query's rows equal the JAX server's _run_single rows."""
+    _, server, queries, want = jax_tiny
+    outs = [server._run_single(q) for q in queries]
+    for rows, w in zip(outs, want):
+        for got, x in zip(rows, w):
+            np.testing.assert_array_equal(interop.to_numpy(got), x)
+
+
+def test_stage_chain_rows_equal_jax(jax_tiny):
+    """The same four queries through process_query, the stage chain, in
+    turn on one server: each query's rows equal the JAX server's, and the
+    chain's six stages are timed (the host clock here)."""
+    _, server, queries, want = jax_tiny
+    for q, w in zip(queries, want):
+        resp, timings = server.process_query(q)
+        for got, x in zip(interop.response_rows(resp), w):
+            np.testing.assert_array_equal(got, x.astype(object))
+        assert all(getattr(timings, f"{s}_us") > 0 for s in SPIRAL_STAGES)
+    assert ("stages", False, 1) in server.graphs.programs
 
 
 def test_factored_served_tail():
-    """A factored server's process_query_fused serves its tail (first dim,
-    fold, modulus switch) through the runner on the query stages' staged
-    outputs: two queries in turn, each equal to its process_query rows and
-    decoded chunk by chunk; _run_single serves the whole query."""
+    """A factored server's process_query_fused serves its query stages as
+    a chain and its tail (first dim, fold, modulus switch) through the
+    runner on the query stages' staged outputs: two queries in turn, each
+    equal to its process_query rows (its own chain) and decoded chunk by
+    chunk; _run_single serves the whole query."""
     tp = preset("tiny")
     client = SpiralClient(tp, seed=4, device="cpu")
     pts = np.random.default_rng(5).integers(
@@ -169,8 +304,9 @@ def test_factored_served_tail():
         np.testing.assert_array_equal(factored.decode_factored(client, got),
                                       pts[idx].astype(object))
         assert _equal_rows(server._run_single(q), server._run_eager(q))
-    assert set(server.graphs.programs) == {("tail", False, 1),
-                                           ("single", False, 1)}
+    assert set(server.graphs.programs) == {
+        ("query_stages", False, 1), ("tail", False, 1), ("stages", False, 1),
+        ("single", False, 1)}
 
 
 def test_staging_refuses_what_it_cannot_serve():

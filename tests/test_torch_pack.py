@@ -119,6 +119,7 @@ def test_torch_pack_server_answers_jax_client(name):
     _same_rows(got, want)
     assert np.array_equal(client.decode(got), pts[idx].astype(object))
     assert timings.packing_us > 0 and timings.composition_us == 0
+    assert list(tserver.graphs.programs) == [("stages", False, 1)]
 
 
 def test_jax_pack_server_answers_torch_client():

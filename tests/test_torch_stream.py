@@ -122,6 +122,7 @@ def test_torch_server_answers_jax_stream_client(jax_run, name):
     assert np.array_equal(r["client"].decode(got),
                           r["pts"][r["idx"]].astype(object))
     assert timings.expansion_us > 0
+    assert ("stages", True, 1) in r["tserver"].graphs.programs
 
 
 @pytest.mark.parametrize("name", TINY)

@@ -123,6 +123,20 @@ def main() -> None:
             np.array_equal(client.decode(r), pts[i].astype(object))
             for r, i in zip(resps, QUERY_IDX))
 
+    @case("served")
+    def _():
+        # two queries in turn through the runner, then a batch and the
+        # stage chain, on one mesh server
+        server = SpiralServer(p, db, pub, mesh=mesh)
+        arrays["served_rows"] = np.stack([rows_of(server._response(
+            *server._run_single(q))) for q in queries])
+        resps, _ = server.process_query_batch(queries)
+        arrays["served_batch_rows"] = np.stack([rows_of(r) for r in resps])
+        resp, tm = server.process_query(queries[1])
+        arrays["served_stages_rows"] = rows_of(resp)
+        info["served_folding_us"] = tm.folding_us
+        info["served_programs"] = sorted(map(list, server.graphs.programs))
+
     @case("pack")
     def _():
         pp = preset("tiny_pack")
