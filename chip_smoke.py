@@ -72,16 +72,18 @@ Phases, each printing its own lines and its wall time:
      (m_out 832) on the real first-dimension output against their plain
      versions;
   9. the measurement layer, after every earlier phase's database is
-     freed: at spiral_20_256 profiling.device_stage_times (each prefix of
-     a query captured and replayed as a CUDA graph; a failed capture, or
-     replayed rows other than the eager rows, fails the run) beside three
-     runs of process_query's stage chain (one CUDA graph per stage, CUDA
-     events between the replays; its rows equal _run_eager's, and each
-     stage's median within max(10%, 50 us) of the prefix stage, or the
-     run fails), process_query_fused's seconds and the device's busy
-     share of served queries from a torch.profiler trace, the response
-     after profiling equal to the one before and the stage sum equal to
-     fused_total_us;
+     freed: at spiral_20_256 profiling.device_stage_times (the served
+     graph replayed between CUDA events, its stages read from the events
+     it records; replayed rows other than the eager rows fail the run)
+     beside three runs of process_query's stage chain (one CUDA graph per
+     stage, CUDA events between the replays; its rows equal _run_eager's,
+     and each stage's median within max(10%, 50 us) of the served graph's
+     stage, or the run fails), the served graph's stage sum
+     (last_timings) against its replay timed by two events around it in
+     three replays (within 3%, or the run fails), process_query_fused's
+     seconds and the device's busy share of served queries from a
+     torch.profiler trace, the response after profiling equal to the one
+     before and the stage sum equal to fused_total_us;
      then the port's bench (python -m spiral_tpu_torch.bench) at
      spiral_20_256 and at spiral_24_256 --implicit, harness ubench at
      spiral_20_256 and harness packingcomp at the four full presets, in
@@ -265,10 +267,13 @@ BATCH = 8
 MEASURE_PRESET = "spiral_20_256"
 MEASURE_RUNS = 3
 STAGE_SUM_TOLERANCE = 0.01
-# a stage chain's stage (process_query) against its prefix-differenced
-# stage (profiling.device_stage_times): the larger of the two bounds
+# a stage chain's stage (process_query) against the served graph's stage
+# (profiling.device_stage_times): the larger of the two bounds
 CHAIN_TOLERANCE = 0.10
 CHAIN_TOLERANCE_US = 50
+# the served graph's stage sum (its own events) against its replay timed
+# by two events around graph.replay()
+SERVED_SUM_TOLERANCE = 0.03
 MEASURE_RUNS_ARGV = (
     ("bench spiral_20_256", "bench", ["--preset", "spiral_20_256"],
      SPIRAL_PATH + ("fold_batch",)),
@@ -1068,7 +1073,7 @@ def report_batch(tag: str, server, n: int, seconds: float, db_bytes: int,
                  launches: dict, path: tuple, card: str) -> None:
     """Print a batch's time, rate, stage times and launches; fail if a
     kernel of `path` was never launched."""
-    tm = server.last_batch_timings
+    tm = server.last_timings
     stages = {k: round(v, 1) for k, v in vars(tm).items()}
     print(f"{tag}: B={n} batch {seconds * 1e3:.3f} ms (host clock, until "
           f"the rows are on the host) = {seconds * 1e3 / n:.3f} ms per "
@@ -1795,7 +1800,7 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
     batch = dict(kernels.LAUNCHES)
     report_batch(f"{name} implicit batch", server, len(qs), seconds,
                  db_bytes, batch, SPIRAL_BATCH_PATH, card)
-    for tag, t in (("query", tm), ("batch", server.last_batch_timings)):
+    for tag, t in (("query", tm), ("batch", server.last_timings)):
         print(f"{name} implicit {tag}: first-dim stage streams "
               f"{streamed / 2**30:.1f} GiB ({db.num_chunks} x "
               f"{slab_bytes / 2**30:.2f} GiB slab) in "
@@ -1819,22 +1824,51 @@ def run_implicit(name: str, seed: int, card: str) -> tuple[dict, dict]:
              **forced}, {f"{name} implicit": single, **forced_q})
 
 
+def served_split(server, query, runs: int) -> list[list[float]]:
+    """[the served graph's stage sum (last_timings, its own events), its
+    replay timed by two CUDA events around graph.replay()] in us, for
+    `runs` replays of the served graph of a packed `query`; fails unless
+    each sum is within SERVED_SUM_TOLERANCE of its replay."""
+    server._run_single(query)
+    (graph,) = server.graphs.programs[("single", False, 1)].graphs
+    out = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.graph.replay()
+        end.record()
+        end.synchronize()
+        out.append([server.last_timings.total_us,
+                    start.elapsed_time(end) * 1e3])
+    print(f"served graph: stage sum (its own events) | replay (two events "
+          f"around it), us: "
+          f"{'; '.join(f'{a:.1f} | {b:.1f}' for a, b in out)}", flush=True)
+    if any(abs(a - b) > SERVED_SUM_TOLERANCE * b for a, b in out):
+        raise SystemExit(f"the served graph's stage sums {out} lie outside "
+                         f"{SERVED_SUM_TOLERANCE:.0%} of its replays")
+    return out
+
+
 def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
                     ) -> None:
     """Phase 9's stage split at `name`: profiling.device_stage_times (the
-    prefixes of one query as CUDA graphs; it raises if a capture fails or
-    the full prefix's replayed rows differ from the eager rows) beside
-    the stage chain's split of process_query (CUDA events between its
-    per-stage graph replays) in MEASURE_RUNS runs on an idle card and
-    MEASURE_RUNS runs each behind a served query (the card busy when the
-    chain starts, as the prefixes' back-to-back replays keep it), and
-    process_query_fused's seconds; then a torch.profiler trace of
-    MEASURE_RUNS served queries, whose kernel time over their host seconds
-    is the device's busy share.  The chain's rows must equal _run_eager's,
-    the response after profiling the one before, the prefixes' stage sum
-    fused_total_us to within STAGE_SUM_TOLERANCE, and each stage's median
-    over the chain's runs behind a served query the prefix stage to
-    within max(CHAIN_TOLERANCE, CHAIN_TOLERANCE_US)."""
+    served graph of one query replayed back to back, its stages read from
+    the events it records; it raises if the replayed rows differ from the
+    eager rows) beside the stage chain's split of process_query (CUDA
+    events between its per-stage graph replays) in MEASURE_RUNS runs on
+    an idle card and MEASURE_RUNS runs each behind a served query (the
+    card busy when the chain starts, as back-to-back replays keep it),
+    the served graph's stage sum (last_timings) against its replay timed
+    by two events around it (served_split), and process_query_fused's
+    seconds; then a torch.profiler trace of MEASURE_RUNS served queries,
+    whose kernel time over their host seconds is the device's busy share.
+    The chain's rows must equal _run_eager's, the response after
+    profiling the one before, the served stage sum fused_total_us to
+    within STAGE_SUM_TOLERANCE and each replay's time to within
+    SERVED_SUM_TOLERANCE, and each stage's median over the chain's runs
+    behind a served query the served graph's stage to within
+    max(CHAIN_TOLERANCE, CHAIN_TOLERANCE_US)."""
     from spiral_tpu_torch import profiling
     from spiral_tpu_torch.params import preset
     from spiral_tpu_torch.pir import SpiralClient, SpiralServer
@@ -1862,10 +1896,11 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
           f"+{single['pool_bytes'] / 2**20:.1f} MiB, warm run "
           f"{single['warm_s']:.3f} s [{card}]", flush=True)
     graph = profiling.device_stage_times(server, q)
+    served = served_split(server, q, MEASURE_RUNS)
     after, _ = server.process_query(q)
     idle = [server.process_query(q)[1] for _ in range(MEASURE_RUNS)]
     # each behind a served query, enqueued with no sync: the card is busy
-    # when the chain starts, as in the prefixes' back-to-back replays
+    # when the chain starts, as in device_stage_times' back-to-back replays
     events = []
     for _ in range(MEASURE_RUNS):
         server._run_single(q)
@@ -1879,11 +1914,11 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
           f"[{card}]", flush=True)
     if not same:
         raise SystemExit(f"{name}: profiling changed the response")
-    print(f"{name} stage split, us: stage, cuda graph prefixes (iters 8, "
-          f"best of 3), process_query's stage chain (CUDA events between "
-          f"per-stage graph replays; {MEASURE_RUNS} runs each behind a "
-          f"served query), chain median - prefix, the chain on an idle card "
-          f"({MEASURE_RUNS} runs) [{card}]", flush=True)
+    print(f"{name} stage split, us: stage, the served graph's events "
+          f"(iters 8, best of 3), process_query's stage chain (CUDA events "
+          f"between per-stage graph replays; {MEASURE_RUNS} runs each "
+          f"behind a served query), chain median - served, the chain on an "
+          f"idle card ({MEASURE_RUNS} runs) [{card}]", flush=True)
     off = []
     split = {}
     for stage in profiling.STAGES:
@@ -1891,7 +1926,7 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
         runs = [getattr(t, f"{stage}_us") for t in events]
         cold = [getattr(t, f"{stage}_us") for t in idle]
         med = float(np.median(runs))
-        split[stage] = {"prefix": g, "chain": runs, "chain_idle": cold}
+        split[stage] = {"served": g, "chain": runs, "chain_idle": cold}
         print(f"  {stage}: {g} | {', '.join(f'{e:.1f}' for e in runs)} | "
               f"{med - g:+.1f} | {', '.join(f'{e:.1f}' for e in cold)}",
               flush=True)
@@ -1901,8 +1936,9 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
     total = graph["fused_total_us"]
     totals = [t.total_us for t in events]
     GRAPHS[f"{name} stage split"] = {
-        **split, "total": {"prefix": total, "chain": totals,
-                           "chain_idle": [t.total_us for t in idle]}}
+        **split, "total": {"served": total, "chain": totals,
+                           "chain_idle": [t.total_us for t in idle]},
+        "served_sum_vs_replay": served}
     print(f"  total: stage sum {stage_sum}, fused_total_us {total} | "
           f"{', '.join(f'{e:.1f}' for e in totals)} | "
           f"{float(np.median(totals)) - total:+.1f} | "
@@ -1916,7 +1952,7 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
     if off:
         raise SystemExit(f"{name}: the stage chain's {off} lie outside "
                          f"max({CHAIN_TOLERANCE:.0%}, {CHAIN_TOLERANCE_US} "
-                         f"us) of the prefix stages")
+                         f"us) of the served graph's stages")
     # the device's busy share of the served path from a profiler trace:
     # device time (torch.profiler, CUPTI: device_busy_us) over the host
     # seconds of MEASURE_RUNS traced served queries, each fetched to the
@@ -1934,7 +1970,7 @@ def run_stage_split(seed: int, card: str, name: str = MEASURE_PRESET
             f"{1 - kernel / (wall * 1e6):.3f}" if kernel else
             "not measured (the trace holds no device time)")
     print(f"  profiler trace of {MEASURE_RUNS} served queries: device time "
-          f"{kernel:.1f} us a query (graph prefixes {total}) in "
+          f"{kernel:.1f} us a query (served graph {total}) in "
           f"{wall * 1e6:.1f} us of host time: device {busy} [{card}]",
           flush=True)
 

@@ -17,10 +17,10 @@ process_query's ServerTimings otherwise.  Throughput is plaintext
 database bytes over the headline seconds, vs_baseline its ratio to the
 reference's 165.7 MB/s.
 
-detail.stage_basis names the stage fields' basis: "cuda_graph_prefixes"
-(device_stage_times on the card), "cuda_graph_stages" (process_query on
-the card: CUDA events between the replays of its per-stage graphs) or
-"host_clock" (a CPU run).  A direct (stream) query's
+detail.stage_basis names the stage fields' basis: "cuda_graph_events"
+(device_stage_times on the card: the served graph's own stage events),
+"cuda_graph_stages" (process_query on the card: CUDA events between the
+replays of its per-stage graphs) or "host_clock" (a CPU run).  A direct (stream) query's
 reconstruction is timed in expansion_us, where bench.py's JAX server
 counts it in composition_us; stage_basis says so for such a query.
 detail.serving names how the served, pipelined and batch times were
@@ -152,11 +152,11 @@ def stage_fields(server, query, pack: bool, device: torch.device,
 
     cuda = device.type == "cuda"
     if query.packed_b is not None and not pack:
-        # on the CPU one timed run a prefix: host-clock times of eager
-        # prefixes are no device metric at any count
+        # on the CPU one timed run: host-clock times of eager stages are no
+        # device metric at any count
         kw = {} if cuda else {"iters": 1, "reps": 1}
         stages = device_stage_times(server, query, **kw)
-        basis = "cuda_graph_prefixes" if cuda else "host_clock"
+        basis = "cuda_graph_events" if cuda else "host_clock"
     else:
         server.process_query(query)
         _, st = server.process_query(query)

@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..params import Params
 from ..core.rescale import rescale_residues_device
 
@@ -33,16 +34,29 @@ def modswitch_device(final: torch.Tensor, params: Params):
     return first, rest
 
 
+def _response(first: torch.Tensor, rest: torch.Tensor) -> Response:
+    """Host rows -> a Response of object arrays."""
+    return Response(first_row=first.numpy().astype(object),
+                    rest_rows=rest.numpy().astype(object))
+
+
 def response_from_device_rows(first, rest) -> Response:
-    return Response(first_row=first.cpu().numpy().astype(object),
-                    rest_rows=rest.cpu().numpy().astype(object))
+    """One query's rows: copied to the host (span "fetch"), then a
+    Response (span "response" around both)."""
+    with tracing.span("response"):
+        with tracing.span("fetch"):
+            first, rest = first.cpu(), rest.cpu()
+        return _response(first, rest)
 
 
 def responses_from_device_rows(first_b, rest_b) -> list[Response]:
     """A batch's rows (B, 1, cols, d) and (B, rows-1, cols, d): one copy to
-    the host, then one Response per query."""
-    first_b, rest_b = first_b.cpu(), rest_b.cpu()
-    return [response_from_device_rows(f, r) for f, r in zip(first_b, rest_b)]
+    the host, then one Response per query (spans as
+    response_from_device_rows)."""
+    with tracing.span("response"):
+        with tracing.span("fetch"):
+            first_b, rest_b = first_b.cpu(), rest_b.cpu()
+        return [_response(f, r) for f, r in zip(first_b, rest_b)]
 
 
 def negacyclic_conv_small(a_small: np.ndarray, b: np.ndarray, q: int

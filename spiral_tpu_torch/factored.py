@@ -31,9 +31,10 @@ import numpy as np
 import torch
 
 from .params import Params
+from . import tracing
 from .crypto.decode import modswitch_device, responses_from_device_rows
-from .graphs import Staged, no_mark
-from .pir import SpiralClient, SpiralServer, query_sources
+from .graphs import StageClock, Staged, no_mark
+from .pir import ServerTimings, SpiralClient, SpiralServer, stage_queries
 from .server.db import EncodedDb, encode_db
 from .server.fold import fold_rounds
 
@@ -94,6 +95,15 @@ class FactoredSpiralServer(SpiralServer):
 
     _response = staticmethod(responses_from_device_rows)
 
+    def _stage_times(self, key: tuple, clock: StageClock) -> ServerTimings:
+        """The tail's three stages (process_query_fused times only them),
+        else SpiralServer's six."""
+        if key[0] != "tail":
+            return super()._stage_times(key, clock)
+        t = clock.intervals_us()
+        return ServerTimings(first_multiply_us=t[0], folding_us=t[1],
+                             modswitch_us=t[2])
+
     def _tail(self, C_reg, q_pos, q_neg, mark=no_mark):
         """First dim, fold and modulus switch of one query, `mark` called
         after each: the F survivors' rows on the device."""
@@ -112,23 +122,23 @@ class FactoredSpiralServer(SpiralServer):
         switch (on a CUDA server one replay of the tail's graph, both
         captured on first use) once warm and once timed on the host clock
         from the staging of its inputs until the rows are on the host.
-        -> (list of F Responses, seconds)."""
-        direct, sources = query_sources([query])
-        stages = self.graphs.run(
-            ("query_stages", direct, 1),
-            lambda w, b, mark: self._query_stages(w, b, direct, mark),
-            sources, QUERY_STAGES, chain=True)
-        sources = [Staged.whole(t) for t in stages]
+        -> (list of F Responses, seconds); last_timings holds the tail's
+        stages."""
+        with tracing.span("serve", request=tracing.count_queries(1)):
+            key, body = stage_queries(self, "query_stages", [query],
+                                      self._query_stages, QUERY_STAGES,
+                                      chain=True)
+            sources = [Staged.whole(t) for t in self.graphs.replay(key, body)]
 
-        def tail():
-            return [x.cpu() for x in self.graphs.run(
-                ("tail", False, 1), self._tail, sources, TAIL_STAGES)]
+            def tail():
+                return [x.cpu() for x in self.graphs.run(
+                    ("tail", False, 1), self._tail, sources, TAIL_STAGES)]
 
-        tail()
-        t0 = time.perf_counter()
-        rows = tail()
-        seconds = time.perf_counter() - t0
-        return self._response(*rows), seconds
+            tail()
+            t0 = time.perf_counter()
+            rows = tail()
+            seconds = time.perf_counter() - t0
+            return self._response(*rows), seconds
 
     def process_query_batch(self, queries):
         raise ValueError("a factored server answers one query at a time")

@@ -19,10 +19,17 @@ the batch size), as jax.jit compiles once per shape:
   stage.  A stage's inputs are then the earlier stages' outputs where
   their capture left them, with no copy between stages.
 - Every call copies its inputs into the static tensors on the current
-  stream (so after the previous replay), replays the graphs in order,
-  calling ``mark`` after each, and returns clones of the static outputs
-  made on the same stream: a later call's inputs never reach an earlier
-  call's replay, and its outputs never alias an earlier call's.
+  stream (so after the previous replay), replays the graphs in order and
+  returns clones of the static outputs made on the same stream: a later
+  call's inputs never reach an earlier call's replay, and its outputs
+  never alias an earlier call's.
+
+Each program's stages are timed by a StageClock (its ``clock``, read
+lazily; the runner remembers the key it replayed last, ``last``).  A path
+captured as one graph records its clock into the graph: the body's stage
+marks, and one mark before its first stage, are timing events captured
+as event-record nodes, which every replay records again.
+A chain's clock marks CUDA events between its stages' replays.
 
 A chain is replayed whole, from its first stage, in every call, and no
 other graph replays between its stages: the pool is shared, so another
@@ -38,13 +45,16 @@ them.
 
 On a CPU server (the caller's choice, as the tests make it) nothing is
 captured, so no warm run is made: the runner runs ``body`` eagerly on the
-staged inputs each call, with the caller's stage mark, writes its results
-into the static outputs (the first run's results become them) and clones
-them the same way.
+staged inputs each call, its stages marked on the host clock, writes its
+results into the static outputs (the first run's results become them) and
+clones them the same way.
 
 Kernel launches (kernels.LAUNCHES): a capture launches nothing, so the
 counts its kernel wrappers add while it records are taken back out, and
 each replay, which launches every recorded kernel once, adds them again.
+Each capture counts in tracing.COUNTS["captures"]; a program's first call
+is traced as the span "capture" (warm run and capture), its staging as
+"stage" and each replay as "replay" (tracing.py).
 """
 from __future__ import annotations
 
@@ -54,11 +64,41 @@ from typing import Callable
 
 import torch
 
-from . import kernels
+from . import kernels, tracing
 
 
 def no_mark() -> None:
     """The stage mark of an unmarked run."""
+
+
+class StageClock:
+    """Stage marks, one made with the clock: timing CUDA events on a CUDA
+    device, else the host clock.  With ``external`` the events are made
+    while a CUDA graph captures, as event-record nodes of the graph: each
+    replay records them again, and the intervals read the last replay."""
+
+    def __init__(self, device: torch.device, external: bool = False):
+        self.cuda = device.type == "cuda"
+        self.external = external
+        self.marks = []
+        self.mark()
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True, external=self.external)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter_ns())
+
+    def intervals_us(self) -> list[float]:
+        """Microseconds between consecutive marks (on the card after a
+        sync on the last)."""
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) * 1e3
+                    for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e-3 for a, b in zip(self.marks, self.marks[1:])]
 
 
 @dataclasses.dataclass
@@ -116,11 +156,13 @@ def warm_up(run: Callable[[], object], device: torch.device):
 class Graph:
     """One CUDA graph, capturing from when it is made until end():
     ``launches`` (the kernel launches one replay makes), ``capture_s``
-    (host seconds of the capture) and ``pool_bytes`` (memory_reserved
-    added by the capture, the graph's share of its pool)."""
+    (host seconds of the capture), ``pool_bytes`` (memory_reserved added by
+    the capture, the graph's share of its pool) and, for a path captured
+    whole, ``clock`` (its stage events; None for a chain's stage)."""
 
     def __init__(self, device: torch.device, pool=None):
         self.device = device
+        self.clock: StageClock | None = None
         self.graph = torch.cuda.CUDAGraph()
         self._launches = dict(kernels.LAUNCHES)
         self._reserved = torch.cuda.memory_reserved(device)
@@ -153,11 +195,12 @@ def capture(run: Callable[[Callable[[], None]], tuple], stages: int,
             what: Callable[[int], str], device: torch.device, pool=None,
             chain: bool = False) -> tuple[list[Graph], tuple]:
     """run(mark), after the caller's warm run, captured on a side stream:
-    as one graph, or with `chain` as `stages` graphs, each ending where
-    run calls mark (stage i's graph at its i-th call; run enqueues nothing
-    after its last).  -> (the graphs, the tensors run returned: each
-    replay rewrites them).  A failed capture raises RuntimeError naming
-    what(the number of stages run marked before it failed)."""
+    as one graph whose clock records an event before run and at each mark,
+    or with `chain` as `stages` graphs, each ending where run calls mark
+    (stage i's graph at its i-th call; run enqueues nothing after its
+    last).  -> (the graphs, the tensors run returned: each replay rewrites
+    them).  A failed capture raises RuntimeError naming what(the number of
+    stages run marked before it failed)."""
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     graphs, marked = [], []
@@ -167,11 +210,15 @@ def capture(run: Callable[[Callable[[], None]], tuple], stages: int,
             graphs[-1].end()
             if len(marked) + 1 < stages:
                 graphs.append(Graph(device, pool))
+        else:
+            graphs[0].clock.mark()
         marked.append(1)
 
     with torch.cuda.stream(torch.cuda.Stream(device)):
         graphs.append(Graph(device, pool))
         try:
+            if not chain:
+                graphs[0].clock = StageClock(device, external=True)
             out = tuple(run(mark))
             if not chain:
                 graphs[-1].end()
@@ -191,13 +238,15 @@ def capture(run: Callable[[Callable[[], None]], tuple], stages: int,
 
 class _Program:
     """A path's static inputs and, on the card, its graphs (one, or one per
-    stage of a chain); its static outputs."""
+    stage of a chain); its static outputs; the StageClock of its last
+    run."""
 
     def __init__(self, inputs: list[torch.Tensor]):
         self.inputs = inputs
         self.graphs: list[Graph] = []
+        self.chain = False
         self.outputs: tuple | None = None
-        self.warm_out = None    # what the warm run returned
+        self.clock: StageClock | None = None
         self.warm_s: float | None = None      # the card's warm run
 
 
@@ -212,38 +261,38 @@ class GraphRunner:
         self.device, self.owner = device, owner
         self.programs: dict[tuple, _Program] = {}
         self.pool = None
+        self.last: tuple | None = None     # the key replayed last
 
     def prepare(self, key: tuple, body: Callable, sources: list[Staged],
-                stages: tuple, warm: Callable | None = None,
-                chain: bool = False):
+                stages: tuple, chain: bool = False):
         """Make `key`'s program unless it exists: its static inputs from
-        `sources` and, on the card, one warm run (`warm`(*inputs) where
-        given, its result kept as the program's ``warm_out``, else the
-        body) and the capture of body(*inputs, mark), which calls mark
-        after each of `stages`: one graph, or with `chain` one graph per
-        stage.  A failed capture names the stage it was in."""
+        `sources` and, on the card, one warm run of the body and the
+        capture of body(*inputs, mark), which calls mark after each of
+        `stages`: one graph, or with `chain` one graph per stage.  A failed
+        capture names the stage it was in."""
         if key in self.programs:
             return
         prog = _Program(static_inputs(sources, self.device))
         if self.device.type != "cuda":
             self.programs[key] = prog
             return
-        t0 = time.perf_counter()
-        if warm is None:
+        with tracing.span("capture"):
+            t0 = time.perf_counter()
             warm_up(lambda: body(*prog.inputs, no_mark), self.device)
-        else:
-            prog.warm_out = warm_up(lambda: warm(*prog.inputs), self.device)
-        warm_s = time.perf_counter() - t0
+            warm_s = time.perf_counter() - t0
 
-        def what(i: int) -> str:
-            return (f"{self.owner} path {key} in stage "
-                    f"{stages[min(i, len(stages) - 1)]}")
+            def what(i: int) -> str:
+                return (f"{self.owner} path {key} in stage "
+                        f"{stages[min(i, len(stages) - 1)]}")
 
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        prog.graphs, prog.outputs = capture(
-            lambda mark: body(*prog.inputs, mark), len(stages), what,
-            self.device, self.pool, chain)
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            prog.graphs, prog.outputs = capture(
+                lambda mark: body(*prog.inputs, mark), len(stages), what,
+                self.device, self.pool, chain)
+        tracing.COUNTS["captures"] += 1
+        prog.chain = chain
+        prog.clock = prog.graphs[0].clock
         prog.warm_s = warm_s
         self.programs[key] = prog
 
@@ -252,33 +301,40 @@ class GraphRunner:
         for s, t in zip(sources, self.programs[key].inputs):
             s.copy_into(t)
 
-    def replay(self, key: tuple, body: Callable,
-               mark: Callable[[], None] = no_mark) -> tuple:
-        """Run `key`'s program on its staged inputs: replay its graphs,
-        `mark` called after each (on the CPU: run body, `mark` called
-        after each stage, and write the static outputs), and return
+    def replay(self, key: tuple, body: Callable) -> tuple:
+        """Run `key`'s program on its staged inputs: replay its graph (its
+        clock's events record again) or its chain's graphs with a new
+        clock marked after each (on the CPU: run body, the host clock
+        marked after each stage, and write the static outputs), and return
         clones of the static outputs."""
         prog = self.programs[key]
-        for graph in prog.graphs:
-            graph.replay()
-            mark()
-        if not prog.graphs:
-            outs = tuple(body(*prog.inputs, mark))
-            if prog.outputs is None:
-                prog.outputs = outs
+        with tracing.span("replay"):
+            if prog.graphs and not prog.chain:
+                prog.graphs[0].replay()
             else:
-                for o, r in zip(prog.outputs, outs):
-                    o.copy_(r)
-        return tuple(x.clone() for x in prog.outputs)
+                prog.clock = StageClock(self.device)
+                for graph in prog.graphs:
+                    graph.replay()
+                    prog.clock.mark()
+            if not prog.graphs:
+                outs = tuple(body(*prog.inputs, prog.clock.mark))
+                if prog.outputs is None:
+                    prog.outputs = outs
+                else:
+                    for o, r in zip(prog.outputs, outs):
+                        o.copy_(r)
+            self.last = key
+            return tuple(x.clone() for x in prog.outputs)
 
     def run(self, key: tuple, body: Callable, sources: list[Staged],
-            stages: tuple, mark: Callable[[], None] = no_mark,
-            chain: bool = False) -> tuple:
-        """Serve one call of `key`: prepare on first use, stage `sources`
-        and replay -> clones of the static outputs."""
-        self.prepare(key, body, sources, stages, chain=chain)
-        self.stage(key, sources)
-        return self.replay(key, body, mark)
+            stages: tuple, chain: bool = False) -> tuple:
+        """Serve one call of `key`: prepare on first use and stage
+        `sources` (span "stage"), then replay -> clones of the static
+        outputs."""
+        with tracing.span("stage"):
+            self.prepare(key, body, sources, stages, chain=chain)
+            self.stage(key, sources)
+        return self.replay(key, body)
 
     def stats(self) -> dict:
         """{key: {"warm_s", "capture_s", "pool_bytes", "graphs"}} of the
@@ -297,3 +353,4 @@ class GraphRunner:
         holds it) the pool."""
         self.programs.clear()
         self.pool = None
+        self.last = None

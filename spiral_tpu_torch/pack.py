@@ -256,7 +256,6 @@ class PackServer:
             self.db = db_mod.ShardedDb(self._block, params, mesh)
         self.device = self._block.device
         self.num_chunks = db.num_chunks if isinstance(db, ImplicitDb) else 1
-        self.last_batch_timings: ServerTimings | None = None
         self._g_ntt = ntt.forward(build_gadget(2, 2 * params.t_gsw,
                                                params.poly_len, self.device))
         neg_monomial_ntts(params.poly_len, self.device)   # made once here
@@ -271,6 +270,14 @@ class PackServer:
     def release_graphs(self) -> None:
         """Free the server's CUDA graphs and their pool."""
         self.graphs.release()
+
+    @property
+    def last_timings(self) -> ServerTimings | None:
+        """The stage times of the server's last served call, read lazily
+        (pir.SpiralServer.last_timings)."""
+        key = self.graphs.last
+        return None if key is None else _timings(
+            self.graphs.programs[key].clock)
 
     # -- stages (spiral_tpu/pack.py PackServer._build_stages); the *_batch
     # forms, convert and pack take and give a leading query axis --
@@ -424,8 +431,8 @@ class PackServer:
     def process_query(self, query: Query):
         """Answer one query of either form: (Response, ServerTimings), the
         stages timed one by one (pir.serve_stages)."""
-        rows, clock = serve_stages(self, query)
-        return self._response(*rows), _timings(clock)
+        rows = serve_stages(self, query)
+        return self._response(*rows), self.last_timings
 
     def process_query_fused(self, query: Query):
         """The serving path: (Response, seconds), the seconds of a second
@@ -436,15 +443,14 @@ class PackServer:
         """Answer a batch of queries of one form: (list[Response],
         seconds), the window from the staging of the batch until the
         response rows are on the host; a CUDA
-        server replays the graph for (form, B), captured on first use
-        after an eager run whose stage times are left in
-        ``last_batch_timings``.  Over an implicit database, or for a batch
-        that mixes forms, it raises ValueError."""
+        server replays the graph for (form, B), captured on first use; its
+        stage times are ``last_timings``.  Over an implicit database, or
+        for a batch that mixes forms, it raises ValueError."""
         if isinstance(self.db, ImplicitDb):
             raise ValueError(
                 "batched pack serving needs an encoded database, not an "
                 "implicit one")
-        return serve_batch(self, queries, _timings)
+        return serve_batch(self, queries)
 
 
 def _timings(clock: StageClock) -> ServerTimings:

@@ -12,10 +12,11 @@ As the JAX server runs each stage as its own jitted program
 graphs, one per stage (graphs.GraphRunner, key ("stages", form, 1)),
 each stage timed by CUDA events recorded between the replays: its
 graph's device time and one launch.  On the CPU the same chain runs
-eagerly under the host clock.  process_query_batch runs the same stages
-over a batch of queries of one form (the JAX ``full_packed_batch`` /
-``full_direct_batch``):
-the database streams once per batch (K2 with all B queries' rows) and the
+eagerly under the host clock.  ``last_timings`` gives the stage times of
+a server's last served call, whichever path served it.
+process_query_batch runs the same stages over a batch of queries of one
+form (the JAX ``full_packed_batch`` / ``full_direct_batch``): the
+database streams once per batch (K2 with all B queries' rows) and the
 fold is one K5 launch per round.  The server takes an EncodedDb or an
 ImplicitDb, whose slab K2 streams num_chunks times.
 
@@ -28,8 +29,9 @@ outputs); on a CPU server the same staged runner runs the stages
 eagerly.  process_query_fused serves a query twice through it and times
 the second run on the host until the response rows are on the host;
 process_query_batch serves a batch of B with one replay of the graph for
-(form, B) (the JAX ``full_*_batch``), after one eager run with the stage
-split when that graph is captured.  final_ciphertext, which stops before
+(form, B) (the JAX ``full_*_batch``).  Each graph of a whole path records
+its stage events inside it (graphs.py), so every replay is split by stage
+on the card's clock.  final_ciphertext, which stops before
 the modulus switch, runs eagerly, and so does _run_eager, the eager
 reference of every served path.  A server's graphs live as long as it
 does, or until release_graphs().
@@ -74,8 +76,9 @@ from .crypto.publicparams import PublicParams, generate_public_params
 from .crypto.query import (Query, generate_query, reconstruct_cts,
                            seed_words)
 from .server.convert import regev_to_gsw_batch, scal_to_mat_batch
+from . import tracing
 from .dist import shard
-from .graphs import GraphRunner, Staged, no_mark, static_inputs
+from .graphs import GraphRunner, StageClock, Staged, no_mark, static_inputs
 from .server.db import (EncodedDb, ImplicitDb, ShardedDb, encode_db,
                         random_db)
 from .server.expand import (coefficient_expansion, neg_monomial_ntts,
@@ -130,30 +133,6 @@ class ServerTimings:
     @property
     def total_us(self) -> float:
         return sum(dataclasses.astuple(self))
-
-
-class StageClock:
-    """Stage marks: CUDA events on a CUDA device, else the host clock."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-        self.mark()
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def intervals_us(self) -> list[float]:
-        if self.cuda:
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b) * 1e3
-                    for a, b in zip(self.marks, self.marks[1:])]
-        return [(b - a) * 1e6 for a, b in zip(self.marks, self.marks[1:])]
 
 
 SPIRAL_STAGES = ("expansion", "composition", "conversion", "first_multiply",
@@ -240,7 +219,6 @@ class SpiralServer:
                                                   mesh)
                 self.db = ShardedDb(self._block, params, mesh)
         self.device = self._block.device
-        self.last_batch_timings: ServerTimings | None = None
         d = params.poly_len
         self._g2_ntt = ntt.forward(build_gadget(params.n1, params.m2, d,
                                                 self.device))
@@ -261,6 +239,23 @@ class SpiralServer:
         """Free the server's CUDA graphs and their pool; the next call of
         each path captures it again."""
         self.graphs.release()
+
+    @property
+    def last_timings(self) -> ServerTimings | None:
+        """The stage times of the server's last served call (_run_single,
+        process_query, process_query_batch, process_query_fused): on the
+        card the CUDA events its replay recorded (inside the graph of a
+        whole path, between the graphs of a chain), on the CPU the host
+        clock of its eager run.  Read lazily: reading syncs on the events,
+        and the value holds until the next served call.  None before the
+        first."""
+        key = self.graphs.last
+        return None if key is None else self._stage_times(
+            key, self.graphs.programs[key].clock)
+
+    def _stage_times(self, key: tuple, clock: StageClock) -> ServerTimings:
+        """The ServerTimings of `key`'s clock."""
+        return _timings(clock, self.mesh is not None)
 
     # -- stages (spiral_tpu/pir.py _build_stages); the *_batch forms,
     # compose and convert take and give a leading query axis, as the JAX
@@ -449,8 +444,8 @@ class SpiralServer:
         reconstruction (and any part's expansion) is timed as its
         expansion_us; the JAX server leaves that field at 0 for direct
         queries, the time falling into its composition."""
-        rows, clock = serve_stages(self, query)
-        return self._response(*rows), _timings(clock, self.mesh is not None)
+        rows = serve_stages(self, query)
+        return self._response(*rows), self.last_timings
 
     def process_query_fused(self, query: Query):
         """The serving path: (Response, seconds), the seconds of a second
@@ -462,77 +457,77 @@ class SpiralServer:
         the window from the staging of the batch (a mesh server: its first
         stage) until the response rows are on the host.  A CUDA server
         serves it with one replay of the graph for (form, B), captured on
-        first use after an eager run whose stage times are left in
-        ``last_batch_timings`` (for that form and B).  A mixed batch
+        first use; its stage times are ``last_timings``.  A mixed batch
         raises ValueError, and so does a sharded batch over an implicit
         database (the JAX mesh server's batch multiplies the slab once and
         raises a TypeError there)."""
         if self.mesh is not None and isinstance(self.db, ImplicitDb):
             raise ValueError("a sharded batch over an implicit database is "
                              "not supported")
-        return serve_batch(self, queries,
-                           lambda clock: _timings(clock,
-                                                  self.mesh is not None))
+        return serve_batch(self, queries)
+
+
+def stage_queries(server, path: str, queries: list[Query], rows,
+                  stages: tuple | None = None, chain: bool = False):
+    """Stage a served call of `path` (span "stage"): the queries' inputs
+    (query_sources), the program of (path, form, B) made on first use
+    (graphs.GraphRunner.prepare) and the inputs' copies.  rows(words, bs,
+    direct, mark) is the path's body; stages default to server.stages.
+    -> (the program's key, its body)."""
+    with tracing.span("stage"):
+        direct, sources = query_sources(queries)
+        key = (path, direct, len(queries))
+
+        def body(words, bs, mark):
+            return rows(words, bs, direct, mark)
+
+        server.graphs.prepare(key, body, sources,
+                              server.stages if stages is None else stages,
+                              chain=chain)
+        server.graphs.stage(key, sources)
+    return key, body
 
 
 def serve_single(server, query: Query):
     """A server's _run_single: on a CUDA server one replay of the graph of
     the query's form (captured on first use), on a CPU server the same
     staged runner run eagerly.  -> fresh response rows on the device."""
-    direct, sources = query_sources([query])
-    return server.graphs.run(
-        ("single", direct, 1),
-        lambda w, b, mark: server._rows(w, b, direct, mark), sources,
-        server.stages)
+    with tracing.span("serve", request=tracing.count_queries(1)):
+        key, body = stage_queries(server, "single", [query], server._rows)
+        return server.graphs.replay(key, body)
 
 
 def serve_stages(server, query: Query):
     """A server's process_query: the chain of server.stages for the
     query's form (captured on first use; on a CPU server run eagerly),
-    its inputs staged, then a StageClock started and marked after each
-    stage.  -> (fresh response rows on the device, the clock)."""
-    direct, sources = query_sources([query])
-    key = ("stages", direct, 1)
-
-    def body(words, bs, mark):
-        return server._rows(words, bs, direct, mark)
-
-    server.graphs.prepare(key, body, sources, server.stages, chain=True)
-    server.graphs.stage(key, sources)
-    clock = StageClock(server.device)
-    return server.graphs.replay(key, body, clock.mark), clock
+    its inputs staged, then replayed with a StageClock marked after each
+    stage (last_timings).  -> fresh response rows on the device."""
+    with tracing.span("serve", request=tracing.count_queries(1)):
+        key, body = stage_queries(server, "stages", [query], server._rows,
+                                  chain=True)
+        return server.graphs.replay(key, body)
 
 
-def serve_batch(server, queries: list[Query],
-                timings) -> tuple[list[Response], float]:
+def serve_batch(server, queries: list[Query]
+                ) -> tuple[list[Response], float]:
     """A server's process_query_batch: (responses, seconds) from the
-    staging until the responses are on the host.  The GraphRunner serves
-    it: on a CUDA server, on the first call for (form, B), an untimed
-    eager run between stage marks, its ServerTimings by `timings` kept
-    with the program, and the capture; then one timed replay.  On a CPU
-    server the runner's eager run is marked itself.  The stage times go to
-    server.last_batch_timings."""
-    direct, sources = query_sources(queries)
-    key = ("batch", direct, len(queries))
+    staging's copies until the responses are on the host, through the
+    GraphRunner (on a CUDA server one replay of the graph for (form, B),
+    captured on first use).  The stage times are last_timings."""
+    with tracing.span("serve", request=tracing.count_queries(len(queries))):
+        with tracing.span("stage"):
+            direct, sources = query_sources(queries)
+            key = ("batch", direct, len(queries))
 
-    def body(words, bs, mark):
-        return server._batch_rows(words, bs, direct, mark)
+            def body(words, bs, mark):
+                return server._batch_rows(words, bs, direct, mark)
 
-    def warm(words, bs):
-        clock = StageClock(server.device)
-        body(words, bs, clock.mark)
-        return timings(clock)
-
-    server.graphs.prepare(key, body, sources, server.stages, warm)
-    prog = server.graphs.programs[key]
-    t0 = time.perf_counter()
-    server.graphs.stage(key, sources)
-    clock = None if prog.graphs else StageClock(server.device)
-    responses = responses_from_device_rows(*server.graphs.replay(
-        key, body, clock.mark if clock else no_mark))
-    seconds = time.perf_counter() - t0
-    server.last_batch_timings = timings(clock) if clock else prog.warm_out
-    return responses, seconds
+            server.graphs.prepare(key, body, sources, server.stages)
+            t0 = time.perf_counter()
+            server.graphs.stage(key, sources)
+        responses = responses_from_device_rows(*server.graphs.replay(key,
+                                                                     body))
+        return responses, time.perf_counter() - t0
 
 
 def _timings(clock: StageClock, sharded: bool = False) -> ServerTimings:

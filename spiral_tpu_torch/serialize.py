@@ -28,7 +28,7 @@ import pathlib
 
 import numpy as np
 
-from . import interop, native
+from . import interop, native, tracing
 from .params import B_I, P_I, Params
 from .arith.crt import P_INV_MOD_B
 from .crypto.decode import Response
@@ -53,10 +53,11 @@ def _response_widths(params: Params) -> tuple[int, int]:
 
 
 def response_to_bytes(resp: Response, params: Params) -> bytes:
-    qp_bits, q1_bits = _response_widths(params)
-    b1 = native.bit_pack(np.asarray(resp.first_row, np.uint64), qp_bits)
-    b2 = native.bit_pack(np.asarray(resp.rest_rows, np.uint64), q1_bits)
-    return len(b1).to_bytes(4, "little") + b1 + b2
+    with tracing.span("pack"):
+        qp_bits, q1_bits = _response_widths(params)
+        b1 = native.bit_pack(np.asarray(resp.first_row, np.uint64), qp_bits)
+        b2 = native.bit_pack(np.asarray(resp.rest_rows, np.uint64), q1_bits)
+        return len(b1).to_bytes(4, "little") + b1 + b2
 
 
 def response_from_bytes(data: bytes, params: Params, rows: int,
@@ -103,33 +104,35 @@ def _check_engine(eng: str, what: str, hint: str) -> None:
 def query_from_bytes(data: bytes, params: Params, device="cuda") -> Query:
     """SPQ2 bytes -> a Query with its b rows (n, 1, 1, 2, d) on `device`
     and size_bytes = len(data)."""
-    if data[:4] == b"SPQ1":
-        raise ValueError(
-            "query uses the retired SPQ1 wire format (no NTT-engine tag); "
-            "re-serialize it with this library version")
-    if data[:4] != QUERY_MAGIC:
-        raise ValueError(f"bad query magic {data[:4]!r}")
-    _check_engine(data[4:12].decode().strip(), "query was serialized",
-                  " — pin both sides with spiral_tpu.arith.ntt.set_engine "
-                  "or SPIRAL_NTT")
-    seed = int.from_bytes(data[12:16], "little")
-    off, d = 16, params.poly_len
-    fields = []
-    for _ in range(3):
-        blen = int.from_bytes(data[off:off + 4], "little")
-        off += 4
-        if blen == 0:
-            fields.append(None)
-            continue
-        npolys = int.from_bytes(data[off:off + 4], "little")
-        v = native.bit_unpack(data[off + 4:off + 4 + blen], QUERY_WORD_BITS,
-                              npolys * d).reshape(npolys, 1, 1, d)
-        off += 4 + blen
-        fields.append(interop.to_torch(
-            np.stack([v % np.uint64(P_I), v % np.uint64(B_I)], axis=-2),
-            device))
-    return Query(seed=seed, packed_b=fields[0], first_b=fields[1],
-                 gsw_b=fields[2], size_bytes=len(data))
+    with tracing.span("parse"):
+        if data[:4] == b"SPQ1":
+            raise ValueError(
+                "query uses the retired SPQ1 wire format (no NTT-engine "
+                "tag); re-serialize it with this library version")
+        if data[:4] != QUERY_MAGIC:
+            raise ValueError(f"bad query magic {data[:4]!r}")
+        _check_engine(data[4:12].decode().strip(), "query was serialized",
+                      " — pin both sides with "
+                      "spiral_tpu.arith.ntt.set_engine or SPIRAL_NTT")
+        seed = int.from_bytes(data[12:16], "little")
+        off, d = 16, params.poly_len
+        fields = []
+        for _ in range(3):
+            blen = int.from_bytes(data[off:off + 4], "little")
+            off += 4
+            if blen == 0:
+                fields.append(None)
+                continue
+            npolys = int.from_bytes(data[off:off + 4], "little")
+            v = native.bit_unpack(data[off + 4:off + 4 + blen],
+                                  QUERY_WORD_BITS,
+                                  npolys * d).reshape(npolys, 1, 1, d)
+            off += 4 + blen
+            fields.append(interop.to_torch(
+                np.stack([v % np.uint64(P_I), v % np.uint64(B_I)], axis=-2),
+                device))
+        return Query(seed=seed, packed_b=fields[0], first_b=fields[1],
+                     gsw_b=fields[2], size_bytes=len(data))
 
 
 def _layout(db: EncodedDb) -> str:

@@ -129,7 +129,7 @@ def _jax_batch(client, jserver, tserver, idxs):
     tqs = [interop.query(q.seed, np.asarray(q.packed_b), "cpu") for q in qs]
     got, seconds = tserver.process_query_batch(tqs)
     assert seconds > 0 and len(got) == len(idxs)
-    assert tserver.last_batch_timings.total_us > 0
+    assert tserver.last_timings.total_us > 0
     singles = [tserver.process_query(q)[0] for q in tqs]
     return want, got, singles
 

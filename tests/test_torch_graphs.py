@@ -23,7 +23,7 @@ from spiral_tpu.crypto.publicparams import PublicParams as JPublicParams
 from spiral_tpu.crypto.query import Query as JQuery
 from spiral_tpu.params import preset as jpreset
 from spiral_tpu.server.db import encode_db as j_encode_db
-from spiral_tpu_torch import factored, graphs, interop, kernels
+from spiral_tpu_torch import factored, graphs, interop, kernels, tracing
 from spiral_tpu_torch.pack import (PackClient, PackServer, encode_pack_db,
                                    random_pack_db)
 from spiral_tpu_torch.crypto.query import seed_words
@@ -122,7 +122,7 @@ def test_stage_chain_serves_each_query_its_own(name):
 
 
 class _FakeGraph:
-    """torch.cuda.CUDAGraph's capture calls, logged."""
+    """torch.cuda.CUDAGraph's capture and replay calls, logged."""
     log: list = []
 
     def capture_begin(self, pool=None, capture_error_mode="global"):
@@ -131,12 +131,27 @@ class _FakeGraph:
     def capture_end(self):
         self.log.append(("end",))
 
+    def replay(self):
+        self.log.append(("replay",))
+
+
+class _FakeEvent:
+    """torch.cuda.Event: its flags and records, logged in the graph log."""
+
+    def __init__(self, enable_timing=False, external=False):
+        self.flags = (enable_timing, external)
+
+    def record(self):
+        _FakeGraph.log.append(("event",) + self.flags)
+
 
 def _fake_cuda(monkeypatch):
     """Patch the torch.cuda calls graphs.capture makes, so that its cuts
-    run on the CPU: each graph's capture is logged, nothing is recorded."""
+    run on the CPU: each graph's capture and event record is logged,
+    nothing is recorded."""
     _FakeGraph.log = []
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
     monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda s: contextlib.nullcontext())
@@ -173,6 +188,65 @@ def test_capture_cuts_a_chain_at_its_marks(monkeypatch):
     assert dict(kernels.LAUNCHES) == before
 
 
+def test_one_graph_capture_records_an_event_a_mark_plus_one(monkeypatch):
+    """Captured as one graph on a CUDA device, a run's stage marks and one
+    mark before its first stage are timing events recorded inside the
+    capture as external (event-record) nodes, the graph's clock; a chain's
+    graphs hold no clock."""
+    _fake_cuda(monkeypatch)
+    cuda = torch.device("cuda")
+
+    def run(mark):
+        for _ in range(3):
+            mark()
+        return (torch.zeros(1),)
+
+    (one,), _ = graphs.capture(run, 3, str, cuda)
+    assert len(one.clock.marks) == 4
+    assert _FakeGraph.log == ([("begin", None, "thread_local")] +
+                              [("event", True, True)] * 4 + [("end",)])
+    chain, _ = graphs.capture(run, 3, str, cuda, chain=True)
+    assert [g.clock for g in chain] == [None] * 3
+
+
+def test_runner_counts_a_capture_a_new_key(monkeypatch):
+    """On a CUDA device (stand-ins here) a program's first call is traced
+    as "capture" inside "stage" and counts one capture; calls of a key it
+    holds replay its graph and count none; the runner remembers the key it
+    replayed last, whose clock is the graph's own."""
+    _fake_cuda(monkeypatch)
+    monkeypatch.setattr(graphs, "static_inputs",
+                        lambda sources, device: [s.parts[0].clone()
+                                                 for s in sources])
+    monkeypatch.setattr(graphs, "warm_up", lambda run, device: run())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "p")
+    runner = graphs.GraphRunner(torch.device("cuda"), "test")
+
+    def body(x, mark):
+        mark()
+        return (x + 1,)
+
+    src = [graphs.Staged.whole(torch.zeros(2))]
+    captures = tracing.COUNTS["captures"]
+    tracing.enable(True)
+    try:
+        for key in (("single", False, 1), ("single", False, 1),
+                    ("batch", False, 2)):
+            (out,) = runner.run(key, body, src, ("all",))
+            assert torch.equal(out, torch.ones(2)) and runner.last == key
+        spans = {s.id: s for s in tracing.drain()}
+    finally:
+        tracing.enable(False)
+    assert tracing.COUNTS["captures"] == captures + 2
+    assert _FakeGraph.log.count(("replay",)) == 3
+    prog = runner.programs[runner.last]
+    assert prog.clock is prog.graphs[0].clock and len(prog.clock.marks) == 2
+    caps = [s for s in spans.values() if s.name == "spiral.capture"]
+    assert len(caps) == 2
+    assert all(spans[s.parent].name == "spiral.stage" for s in caps)
+    assert [s.name for s in spans.values()].count("spiral.replay") == 3
+
+
 def test_failed_chain_capture_names_its_stage(monkeypatch):
     """A stage that fails in the capture raises RuntimeError naming that
     stage (what(i), i the stages marked before it), after ending the open
@@ -203,15 +277,15 @@ def test_batches_served_twice_and_two_sizes(name):
     """A batch of 2 served twice gives its eager rows both times; a batch
     of 3 in the same server gets a program of its own; every answer
     decodes, and each call's stage split (the runner's own eager run,
-    marked, on the CPU) is in last_batch_timings."""
+    marked, on the CPU) is in last_timings."""
     client, server, pts = _serve(name)
     queries = [client.query(i) for i in IDXS]
     direct = queries[0].packed_b is None
     first, _ = server.process_query_batch(queries[:2])
-    timings = server.last_batch_timings
+    timings = server.last_timings
     again, seconds = server.process_query_batch(queries[:2])
     assert seconds > 0 and timings.total_us > 0
-    assert server.last_batch_timings is not timings
+    assert server.last_timings is not timings
     eager = server._run_batch(queries[:2])
     for b, resp in enumerate(first):
         assert all(np.array_equal(x, interop.to_numpy(e[b]).astype(object))
@@ -285,7 +359,8 @@ def test_factored_served_tail():
     a chain and its tail (first dim, fold, modulus switch) through the
     runner on the query stages' staged outputs: two queries in turn, each
     equal to its process_query rows (its own chain) and decoded chunk by
-    chunk; _run_single serves the whole query."""
+    chunk, last_timings holding the tail's three stages; _run_single
+    serves the whole query."""
     tp = preset("tiny")
     client = SpiralClient(tp, seed=4, device="cpu")
     pts = np.random.default_rng(5).integers(
@@ -295,6 +370,9 @@ def test_factored_served_tail():
     for idx in (IDXS[1], IDXS[3]):
         q = client.query(idx)
         got, seconds = server.process_query_fused(q)
+        tail = server.last_timings
+        assert tail.db_independent_us == 0 and tail.folding_us > 0
+        assert tail.first_multiply_us > 0 and tail.modswitch_us > 0
         want, _ = server.process_query(q)
         assert seconds > 0 and len(got) == 3
         for a, b in zip(got, want):

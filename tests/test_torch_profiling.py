@@ -1,9 +1,10 @@
 """The port's stage profiler (spiral_tpu_torch/profiling.py) on the CPU at
-the tiny presets, where its prefixes run eagerly on the host clock: the
-JAX profiler's keys as non-negative ints, a server whose responses are
-unchanged by profiling, and a refusal of the servers and queries the JAX
+the tiny presets, where the served runner runs its stages eagerly on the
+host clock: the JAX profiler's keys as non-negative ints, a server whose
+responses are unchanged by profiling, the profiled runs' rows equal to
+the eager rows, and a refusal of the servers and queries the JAX
 profiler does not take.  No timing relation is asserted here, where
-eager prefixes are noisy; the stage sum against fused_total_us is checked
+eager stages are noisy; the stage sum against fused_total_us is checked
 on the card by chip_smoke.py."""
 import numpy as np
 import pytest
@@ -47,13 +48,17 @@ def test_stage_times_keys_and_server_unchanged():
 
 
 def test_prefix_rows_equal_eager_rows():
-    """The full prefix on staged inputs gives _run_single's rows."""
+    """The profiled runs of the served program, on its staged inputs, leave
+    the eager rows (_run_eager's, and _run_single's) in its outputs, and
+    its last run's clock holds one interval a stage."""
     client, server, _ = _server("tiny")
     q = client.query(5)
-    times, rows = profiling.prefix_times(server, q, iters=1, reps=1)
-    assert len(times) == len(profiling.STAGES)
-    for a, b in zip(rows, server._run_single(q)):
-        assert torch.equal(a, b)
+    profiling.device_stage_times(server, q, iters=1, reps=2)
+    prog = server.graphs.programs[("single", False, 1)]
+    assert len(prog.clock.intervals_us()) == len(profiling.STAGES)
+    for a, b, c in zip(prog.outputs, server._run_eager(q),
+                       server._run_single(q)):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_direct_query_raises():

@@ -151,7 +151,7 @@ def test_torch_stream_pack_batch_matches_jax(jax_run):
     want, _ = r["jserver"].process_query_batch(qs)
     tqs = [_tquery(q) for q in qs]
     got, seconds = r["tserver"].process_query_batch(tqs)
-    assert seconds > 0 and r["tserver"].last_batch_timings.packing_us > 0
+    assert seconds > 0 and r["tserver"].last_timings.packing_us > 0
     for i, q, w, g in zip(idxs, tqs, want, got):
         _same_rows(g, w)
         _same_rows(r["tserver"].process_query(q)[0], g)
