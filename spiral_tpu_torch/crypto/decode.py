@@ -16,7 +16,8 @@ from ..core.rescale import rescale_residues_device
 
 @dataclasses.dataclass
 class Response:
-    """Two-modulus modswitched response (host object arrays)."""
+    """Two-modulus modswitched response (host uint64 arrays, the dtype
+    serialize.response_from_bytes gives)."""
 
     first_row: np.ndarray   # (1, cols, d) values mod q'
     rest_rows: np.ndarray   # (rows-1, cols, d) values mod 4p
@@ -35,9 +36,9 @@ def modswitch_device(final: torch.Tensor, params: Params):
 
 
 def _response(first: torch.Tensor, rest: torch.Tensor) -> Response:
-    """Host rows -> a Response of object arrays."""
-    return Response(first_row=first.numpy().astype(object),
-                    rest_rows=rest.numpy().astype(object))
+    """Host int32 rows -> a Response of uint64 arrays."""
+    return Response(first_row=first.numpy().astype(np.uint64),
+                    rest_rows=rest.numpy().astype(np.uint64))
 
 
 def response_from_device_rows(first, rest) -> Response:

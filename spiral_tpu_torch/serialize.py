@@ -55,8 +55,8 @@ def _response_widths(params: Params) -> tuple[int, int]:
 def response_to_bytes(resp: Response, params: Params) -> bytes:
     with tracing.span("pack"):
         qp_bits, q1_bits = _response_widths(params)
-        b1 = native.bit_pack(np.asarray(resp.first_row, np.uint64), qp_bits)
-        b2 = native.bit_pack(np.asarray(resp.rest_rows, np.uint64), q1_bits)
+        b1 = native.bit_pack(resp.first_row, qp_bits)
+        b2 = native.bit_pack(resp.rest_rows, q1_bits)
         return len(b1).to_bytes(4, "little") + b1 + b2
 
 

@@ -25,9 +25,9 @@ from spiral_tpu.crypto.publicparams import PublicParams as JPublicParams
 from spiral_tpu.crypto.query import Query as JQuery
 from spiral_tpu.params import B_I, P_I, Q, preset
 from spiral_tpu.server.db import encode_db as j_encode_db
-from spiral_tpu_torch import interop, native, serialize
+from spiral_tpu_torch import factored, interop, native, pir, serialize
 from spiral_tpu_torch import params as tparams
-from spiral_tpu_torch.crypto.decode import Response
+from spiral_tpu_torch.crypto.decode import Response, modswitch_device
 from spiral_tpu_torch.crypto.query import Query
 from spiral_tpu_torch.pack import (PackClient, PackPublicParams,
                                    encode_pack_db, random_pack_db)
@@ -101,24 +101,44 @@ def _assert_same_pub(a, b):
 
 # -- native: bit packing and the Garner lift ---------------------------------
 
-@pytest.mark.parametrize("width", [10, 18, 20, 22, 28, 56])
-def test_native_matches_jax(width):
+@pytest.mark.parametrize("dtype", [np.int32, np.uint64])
+@pytest.mark.parametrize("width", [1, 7, 8, 10, 12, 18, 19, 20, 22, 28, 32,
+                                   56, 63, 64])
+def test_native_matches_jax(width, dtype):
     """bit_pack / bit_unpack equal the JAX package's C++ runtime at counts
-    1, 7, 8, 1,000 and 2,048*k, with values at 2^width - 1; values wider
-    than `width` are masked as the C++ masks them."""
+    0, 1, g - 1, g and g + 1 (g = 8 / gcd(width, 8) values fill whole
+    bytes), 7, 8, 1,000, 4,097 and 2,048*3, from int32 values (as the
+    card's rows are fetched) or uint64 ones, at the largest value the
+    dtype holds at that width; values with bits set above `width` are
+    masked as the C++ masks them; bits past the end of truncated data
+    read as 0."""
     assert jnative.available()
     rng = np.random.default_rng(width)
-    for n in (1, 7, 8, 1000, 2048 * 3):
-        v = rng.integers(0, 1 << width, size=n, dtype=np.uint64)
-        v[::3] = (1 << width) - 1
+    top = (1 << min(width, 31 if dtype is np.int32 else 64)) - 1
+    mask = np.uint64((1 << width) - 1)
+    g = 8 // math.gcd(width, 8)
+    for n in sorted({0, 1, g - 1, g, g + 1, 7, 8, 1000, 4097, 2048 * 3}):
+        v = rng.integers(0, top, size=n, dtype=np.uint64, endpoint=True)
+        v[::3] = top
+        v = v.astype(dtype)
         blob = native.bit_pack(v, width)
         assert blob == jnative.bit_pack(v, width)
         assert len(blob) == math.ceil(n * width / 8)
-        wide = v | np.uint64(1 << width)
-        assert native.bit_pack(wide, width) == jnative.bit_pack(wide, width)
         np.testing.assert_array_equal(native.bit_unpack(blob, width, n),
                                       jnative.bit_unpack(blob, width, n))
         np.testing.assert_array_equal(native.bit_unpack(blob, width, n), v)
+        # int32: every bit from min(width, 31) up, the sign's extension too
+        wide = v | (np.int32(-(1 << min(width, 31))) if dtype is np.int32
+                    else ~mask)
+        wblob = native.bit_pack(wide, width)
+        assert wblob == jnative.bit_pack(wide, width)
+        np.testing.assert_array_equal(native.bit_unpack(wblob, width, n),
+                                      wide.astype(np.uint64) & mask)
+        for cut in (1, 5, 17):
+            short = blob[:max(len(blob) - cut, 0)]
+            np.testing.assert_array_equal(
+                native.bit_unpack(short, width, n),
+                jnative.bit_unpack(short.ljust(len(blob), b"\0"), width, n))
 
 
 def test_crt_lift_matches_jax():
@@ -200,6 +220,46 @@ def test_wire_sizes_at_full_presets():
                                        dtype=object))
     assert len(serialize.response_to_bytes(resp, sp)) == 4 + 11264 + 10240
     assert sp.response_size_bytes() == 21504
+
+
+@pytest.mark.parametrize("path", ["single", "batch", "factored"])
+def test_served_responses_are_integer_rows(path):
+    """The Responses the served paths build from the device rows (tiny,
+    the CPU): one query's (its rows fetched, then server._response, as a
+    serving loop calls it), a batch's (process_query_batch, rows equal to
+    each query's own) and a factored server's (process_query_fused, F =
+    3, rows equal to its final ciphertexts' modulus switch) hold the rows'
+    values as uint64 arrays, not object arrays, and write the JAX
+    writer's bytes for those rows."""
+    p, tp = preset("tiny"), tparams.preset("tiny")
+    client = SpiralClient(tp, seed=5, device="cpu")
+    rng = np.random.default_rng(4)
+    queries = [client.query(i) for i in (3, tp.total_n - 1)]
+    if path == "factored":
+        pts = rng.integers(0, tp.p_db, size=(tp.total_n, 3, tp.n0, tp.n2,
+                                             tp.poly_len))
+        server = factored.FactoredSpiralServer(
+            tp, factored.encode_factored_db(pts, tp, "cpu"), client.setup())
+        want = list(zip(*modswitch_device(
+            server.final_ciphertext(queries[0]), tp)))
+        got = server.process_query_fused(queries[0])[0]
+    else:
+        server = SpiralServer(tp, encode_db(random_db(tp, rng), tp, "cpu"),
+                              client.setup())
+        want = [[x.cpu() for x in pir.serve_single(server, q)]
+                for q in queries]
+        got = [server._response(*rows) for rows in want] if \
+            path == "single" else server.process_query_batch(queries)[0]
+    assert len(got) == len(want)
+    for resp, (first, rest) in zip(got, want):
+        first, rest = first.numpy(), rest.numpy()
+        for row, rows in ((resp.first_row, first), (resp.rest_rows, rest)):
+            assert row.dtype == np.uint64
+            np.testing.assert_array_equal(row, rows)
+        assert serialize.response_to_bytes(resp, tp) == \
+            jser.response_to_bytes(JResponse(
+                first_row=first.astype(object),
+                rest_rows=rest.astype(object)), p)
 
 
 # -- public parameters -------------------------------------------------------
