@@ -29,15 +29,24 @@ Phases, each printing its own lines and its wall time:
      as a K8b round (K8b-1, K8b-2, K1) on the same inputs, both times on
      one line with the engine the fold picks for it;
   3b. K4 at each of the expansion's launches of one spiral_20_256 query
-     (16) and one spiral_24_256 query (18), each held bit-equal to its
-     plain version and timed, with the sum per query;
+     (16), one spiral_24_256 query (18) and one query at the parameters
+     select_params picks for 2^18 x 30,000 B records (SELECTED: 19, at m
+     32 and 56 over g 11 rounds), each held bit-equal to its plain
+     version and timed, with the sum per query;
   3c. K1 at each of its 7 launches in one spiral_20_256 query (the
      expansion's constants cached: the query's a, composition,
      conversion, first dim; and one closing each fold round that runs
      K8b, none at spiral_20_256) and K8a at each of its 9 (one per expansion
-     round), each held bit-equal to its plain version and timed, with the
-     sums and bounds per query (--kernels-only stops here and prints the
-     phase 3-3c JSON);
+     round), and K8a at each of the 11 rounds of a SELECTED query, each
+     held bit-equal to its plain version and timed, with the sums and
+     bounds per query;
+  3d. the SELECTED parameters' fold and first dimension: K3 at each of
+     its 8 fold rounds (factor 4 x 256 cts folded as one axis, t_gsw 9),
+     and K2 over its whole (2, 2048, 2048, 2048) encoded layout (64 GiB of
+     random residues, K 2,048), timed on the whole layout beside its
+     bound and held bit-equal to the plain multiply on a slice of
+     SELECTED_K2_COLS columns with the full reduction axis (--kernels-only
+     stops here and prints the phase 3-3d JSON);
   4. Spiral: a tiny flow on the card against the plain CPU flow (equal
      response rows), then end to end at spiral_20_256: a seeded client, a
      2^20 x 256 B database from a numpy seed encoded on the card, and
@@ -65,7 +74,10 @@ Phases, each printing its own lines and its wall time:
      launch) and spiralstreampack_20_256 as in phase 5, each database
      freed before the next;
   8. oversized items (spiral_tpu_torch/factored.py): spiral_20_256 with
-     13 sub-databases (26 GiB encoded, each drawn and encoded in turn),
+     13 sub-databases (26 GiB encoded, each drawn and encoded in turn,
+     traced: one spiral.encode span a sub-database, their host seconds
+     the encode's, and tracing.COUNTS["encoded_bytes"] grown by the
+     database's bytes, or the run fails),
      three queries through process_query and process_query_fused, all 13
      chunks of each decoded, one K2 launch per run; then K2 at the
      factored shape (m 3,328) on the real database and K3's round 1
@@ -251,6 +263,14 @@ FOLD_FORCED = (("K3 every round", {}, ("fold",), ("fold_ntt",
                                                   "fold_contract")),
                ("K8b every round", collections.defaultdict(int),
                 ("fold_ntt", "fold_contract"), ("fold",)))
+# phases 3b-3d also run the kernels at the parameters the system selects
+# for the paper's 2^18 x 30,000 B database (pirbench's spiral_18_30000
+# configuration), shapes no preset has: K4 at m 32 over g 11 rounds, K8a
+# over 11 rounds, K3 over factor x num_per cts at nu_2 8, K2 at K 2,048
+SELECTED = (18, 30000)
+# phase 3d's plain first-dim multiply runs on this many columns of that
+# database, with the whole reduction axis
+SELECTED_K2_COLS = 256
 # the oversized-item configuration of phase 8: a 100,000-B item at
 # spiral_20_256 is served as 13 sub-databases (the JAX package's
 # paramgen.search.select_params(14, 100000): the spiral_20_256 parameters
@@ -505,16 +525,18 @@ def check_kernels(seed: int) -> dict:
     return results
 
 
-def check_case(name, kernel, run, plain, reps, inputs, prods, macs=0
-               ) -> dict:
+def check_case(name, kernel, run, plain, reps, inputs, prods, macs=0,
+               part=None) -> dict:
     """One kernel case: the kernel's output against its plain version's
     (tolerance 0), the kernel timed as cuda_ms does over `reps` launches,
     the plain version once, and the bound from the inputs' and output's
     bytes, `prods` modular products and `macs` int8 tensor-core
-    multiply-adds.  Fails if the two differ."""
+    multiply-adds.  part: a view of the output that the plain version
+    computes (default the whole output).  Fails if the two differ."""
     got, want = run(), plain()
     torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
+    err = int(((got if part is None else part(got)).long() -
+               want.long()).abs().max())
     del want
     nbytes = sum(t.numel() * 4 for t in inputs) + got.numel() * 4
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -815,13 +837,25 @@ def edge_cases(gen) -> list:
     return cases
 
 
-def expand_launches(name: str) -> list[tuple[str, int, int, int]]:
-    """The K4 launches of one query at a preset, in the order
-    coefficient_expansion makes them: (side, round, cts N, digits m).  Odd
-    slots stop after the stopround, where only the first t_gsw * nu_2 + 1
-    are switched."""
+def as_params(p):
+    """A preset's Params by name, or `p` itself."""
     from spiral_tpu_torch.params import preset
-    p = preset(name)
+    return preset(p) if isinstance(p, str) else p
+
+
+def selected() -> tuple[str, object, int]:
+    """(tag, Params, factor) of select_params(*SELECTED)."""
+    from spiral_tpu_torch.paramgen.search import select_params
+    sel = select_params(*SELECTED)
+    return f"spiral_{SELECTED[0]}_{SELECTED[1]}", sel.params, sel.factor
+
+
+def expand_launches(p) -> list[tuple[str, int, int, int]]:
+    """The K4 launches of one query at a preset (by name) or a Params, in
+    the order coefficient_expansion makes them: (side, round, cts N,
+    digits m).  Odd slots stop after the stopround, where only the first
+    t_gsw * nu_2 + 1 are switched."""
+    p = as_params(p)
     out = []
     for r in range(p.g):
         out.append(("even", r, 1 << r, p.m_exp))
@@ -835,17 +869,20 @@ def expand_launches(name: str) -> list[tuple[str, int, int, int]]:
 
 def time_expand_launches(gen) -> dict:
     """Phase 3b: K4 at each launch of one query's expansion at
-    spiral_20_256 and spiral_24_256 (expand_launches), each held bit-equal
-    to keyswitch_plain and timed as cuda_ms does, beside its bound; the
-    sum over a query's launches per preset."""
+    spiral_20_256, spiral_24_256 and the SELECTED parameters
+    (expand_launches), each held bit-equal to keyswitch_plain and timed as
+    cuda_ms does, beside its bound; the sum over a query's launches per
+    parameter set."""
     from spiral_tpu_torch.params import preset
     from spiral_tpu_torch.server import expand
 
     out = {}
-    for name in ("spiral_20_256", "spiral_24_256"):
-        d = preset(name).poly_len
+    for name, p in (("spiral_20_256", preset("spiral_20_256")),
+                    ("spiral_24_256", preset("spiral_24_256")),
+                    selected()[:2]):
+        d = p.poly_len
         rows, total, bound = [], 0.0, 0.0
-        for side, r, N, m in expand_launches(name):
+        for side, r, N, m in expand_launches(p):
             cv, ca = (rand_residues(gen, (N, 2, 1, d)) for _ in range(2))
             W = rand_residues(gen, (2, m, d))
             got = expand.keyswitch(cv, ca, W, m)
@@ -893,12 +930,11 @@ def k1_launches(name: str) -> list[tuple[str, str, int]]:
          if fold.round_uses_mxu(m_out, p.n1, p.n2, p.t_gsw)]
 
 
-def auto_launches(name: str) -> list[tuple[int, int, int]]:
-    """The K8a launches of one query at a Spiral preset: (round, t, cts),
-    every ct of the round while odd slots live, the evens after the
-    stopround."""
-    from spiral_tpu_torch.params import preset
-    p = preset(name)
+def auto_launches(p) -> list[tuple[int, int, int]]:
+    """The K8a launches of one query at a Spiral preset (by name) or a
+    Params: (round, t, cts), every ct of the round while odd slots live,
+    the evens after the stopround."""
+    p = as_params(p)
     return [(r, (p.poly_len >> r) + 1,
              2 << r if p.stopround == 0 or r <= p.stopround else 1 << r)
             for r in range(p.g)]
@@ -906,24 +942,30 @@ def auto_launches(name: str) -> list[tuple[int, int, int]]:
 
 def time_ntt_auto_launches(gen) -> dict:
     """Phase 3c: K1 at each of its launches in one spiral_20_256 query
-    (k1_launches) and K8a at each of its rounds (auto_launches), each held
-    bit-equal to its plain version on inputs made on the card and timed
-    as cuda_ms does, beside its bound; the sums per query."""
+    (k1_launches) and K8a at each of its rounds (auto_launches) there and
+    at the SELECTED parameters, each held bit-equal to its plain version
+    on inputs made on the card and timed as cuda_ms does, beside its
+    bound; the sums per query, {kernel: {parameter set: ...}}."""
     from spiral_tpu_torch.arith import ntt
-    from spiral_tpu_torch.params import preset
     from spiral_tpu_torch.server import expand
 
-    name = "spiral_20_256"
-    d = preset(name).poly_len
+    def autos(p):
+        return [(f"round {r} (t {t})", 2 * n,
+                 lambda x, t=t: expand.inv_ntt_automorph(x, t),
+                 lambda x, t=t: expand.inv_ntt_automorph_plain(x, t))
+                for r, t, n in auto_launches(p)]
+
+    sp = as_params("spiral_20_256")
+    sel_tag, sel, _ = selected()
     out = {}
-    cases = {"ntt": [(f"{stage} {way}", n, getattr(ntt, way),
-                      getattr(ntt, way + "_plain"))
-                     for stage, way, n in k1_launches(name)],
-             "auto": [(f"round {r} (t {t})", 2 * n,
-                       lambda x, t=t: expand.inv_ntt_automorph(x, t),
-                       lambda x, t=t: expand.inv_ntt_automorph_plain(x, t))
-                      for r, t, n in auto_launches(name)]}
-    for kernel, launches in cases.items():
+    cases = (("ntt", "spiral_20_256", sp,
+              [(f"{stage} {way}", n, getattr(ntt, way),
+                getattr(ntt, way + "_plain"))
+               for stage, way, n in k1_launches("spiral_20_256")]),
+             ("auto", "spiral_20_256", sp, autos(sp)),
+             ("auto", sel_tag, sel, autos(sel)))
+    for kernel, name, p, launches in cases:
+        d = p.poly_len
         rows, total, bound = [], 0.0, 0.0
         for tag, n, run, plain in launches:
             x = rand_residues(gen, (n, d))
@@ -943,8 +985,48 @@ def time_ntt_auto_launches(gen) -> dict:
                                  f"from its plain version")
         print(f"{kernel} {name}: {len(rows)} launches per query, sum "
               f"{total:.4f} ms (bound {bound:.4f} ms)", flush=True)
-        out[kernel] = {"launches": rows, "sum_ms": total,
-                       "sum_bound_ms": bound}
+        out.setdefault(kernel, {})[name] = {
+            "launches": rows, "sum_ms": total, "sum_bound_ms": bound}
+    return out
+
+
+def check_selected(gen) -> dict:
+    """Phase 3d: K3 at each fold round of the SELECTED parameters (their
+    factor x num_per first-dim cts fold as one axis) and K2 over their
+    whole encoded layout, random residues made on the card: K2 timed on
+    the whole layout beside its bound, and held to the plain multiply on
+    its first SELECTED_K2_COLS columns (the whole reduction axis K).
+    Returns {kernel: {case: record}}."""
+    from spiral_tpu_torch.params import B_I, P_I
+    from spiral_tpu_torch.server import firstdim, fold
+
+    tag, p, factor = selected()
+    d, n1, n2, t = p.poly_len, p.n1, p.n2, p.t_gsw
+    out = {"fold": {}, "firstdim": {}}
+    for r in range(p.nu_2):
+        m_out = factor * p.num_per >> (r + 1)
+        cts = rand_residues(gen, (2 * m_out, n1, n2, d))
+        qn, qp = (rand_residues(gen, (n1, t * n1, d)) for _ in range(2))
+        name = f"fold_{tag}_round{r + 1}"
+        out["fold"][name] = check_case(
+            name, "fold", lambda: fold.fold_round(cts, qn, qp, t),
+            lambda: fold.fold_round_plain(cts, qn, qp, t), 5,
+            [cts, qn, qp], fold_products(m_out, n1, n2, t, d))
+    del cts, qn, qp
+    K, m = p.dim0 * p.n0, factor * p.num_per * p.n2
+    db = torch.empty((2, d, K, m), dtype=torch.int32, device="cuda")
+    for limb, modulus in enumerate((P_I, B_I)):
+        db[limb].random_(0, modulus, generator=gen)
+    qk = rand_residues(gen, (K, n1, d))
+    cols = slice(0, SELECTED_K2_COLS)
+    name = f"firstdim_{tag}"
+    out["firstdim"][name] = check_case(
+        name, "firstdim", lambda: firstdim.multiply_query_by_db(db, qk),
+        lambda: firstdim.multiply_plain(db[..., cols], qk), 5, [db, qk], 0,
+        K2_MACS_PER_PRODUCT * 2 * d * K * m * n1,
+        part=lambda got: got[..., cols])
+    del db
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1604,12 +1686,14 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
     card one at a time, the host keeping only the queried records; three
     queries (index 0, total_n - 1, a random one) through process_query
     and process_query_fused, every chunk decoded; K2 must launch once per
-    run of a query, and K1, K3, K4 and K8a must launch.  Then K2 at the
+    run of a query, and K1, K3, K4 and K8a must launch; the encode is
+    traced, and must record one spiral.encode span a sub-database and add
+    the database's bytes to tracing.COUNTS["encoded_bytes"].  Then K2 at the
     factored shape on the real database and K3's round 1 on the real
     first-dimension output, each held to its plain version and timed.
     Returns ({path: launches}, {path: launches of its last query},
     {kernel: {case: record}})."""
-    from spiral_tpu_torch import kernels
+    from spiral_tpu_torch import kernels, tracing
     from spiral_tpu_torch.factored import (FactoredSpiralServer,
                                            decode_factored,
                                            encode_factored_db)
@@ -1637,9 +1721,17 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
             yield pts
 
     t0 = time.perf_counter()
-    db = encode_factored_db(sub_dbs(), params, "cuda", factor=factor)
-    torch.cuda.synchronize()
+    encoded = tracing.COUNTS["encoded_bytes"]
+    tracing.drain()
+    tracing.enable(True)
+    try:
+        db = encode_factored_db(sub_dbs(), params, "cuda", factor=factor)
+        torch.cuda.synchronize()
+    finally:
+        tracing.enable(False)
     t1 = time.perf_counter()
+    spans = [s for s in tracing.drain() if s.name == "spiral.encode"]
+    encoded = tracing.COUNTS["encoded_bytes"] - encoded
     client = SpiralClient(params, seed=seed, device="cuda")
     server = FactoredSpiralServer(params, db, client.setup())
     torch.cuda.synchronize()
@@ -1649,9 +1741,15 @@ def run_factored(seed: int, card: str, name: str = FACTORED_PRESET,
         params.poly_len * int(np.log2(params.p_db)) // 8
     print(f"{name} factored x{factor}: {db_bytes / 2**30:.2f} GiB encoded "
           f"on the card ({tuple(db.data.shape)}), {item_bytes} B of items; "
-          f"setup: draw {draw[0]:.2f} s, encode {t1 - t0 - draw[0]:.2f} s, "
-          f"client keys+public params and server {t2 - t1:.2f} s",
-          flush=True)
+          f"setup: draw {draw[0]:.2f} s, encode {t1 - t0 - draw[0]:.2f} s "
+          f"({len(spans)} spiral.encode spans, "
+          f"{sum(s.end_ns - s.start_ns for s in spans) / 1e9:.2f} s on the "
+          f"host; encoded_bytes {encoded}), client keys+public params and "
+          f"server {t2 - t1:.2f} s", flush=True)
+    if len(spans) != factor or encoded != db_bytes:
+        raise SystemExit(f"{name} factored: {len(spans)} spiral.encode "
+                         f"spans for {factor} sub-databases, encoded_bytes "
+                         f"{encoded} for {db_bytes} B")
 
     chain = capture_chain(f"{name} factored", server, client.query(1), card)
     kernels.reset_launches()
@@ -2501,7 +2599,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 3c and print its JSON (no end "
+                    help="stop after phase 3d and print its JSON (no end "
                          "to end run, no ok line): kernel times to compare "
                          "two trees on one card")
     args = ap.parse_args()
@@ -2549,6 +2647,12 @@ def main() -> int:
         device="cuda").manual_seed(args.seed))
     torch.cuda.empty_cache()
     t0 = phase("3c K1 and K8a per launch", t0)
+    for kernel, recs in check_selected(torch.Generator(
+            device="cuda").manual_seed(args.seed)).items():
+        checks[kernel].update(recs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = phase("3d the selected 30 KB parameters", t0)
     if args.kernels_only:
         print(json.dumps({"checks": checks, "fold_rounds": fold_rounds,
                           "expand_launches": k4_launches,

@@ -27,6 +27,9 @@ detail.serving names how the served, pipelined and batch times were
 served (the server's ``serving``): "cuda_graph" (one CUDA-graph replay a
 query or batch) or "eager" (a CPU run).
 
+--verbose logs each step on stderr, and traces the database encode:
+its spiral.encode spans and tracing.COUNTS["encoded_bytes"] in the log.
+
 Runs on the card unless --device cpu.  Exits 1 when a decode is wrong.
 """
 from __future__ import annotations
@@ -68,6 +71,7 @@ def build(args, device: torch.device, log):
     """(params, pack, client, server, pts, rng): a seeded client and a
     server over a database drawn from numpy seed 0 (pts None for an
     implicit one), as bench.py builds them."""
+    from . import tracing
     from .params import preset
     from .pack import PackClient, PackServer, encode_pack_db
     from .pir import SpiralClient, SpiralServer
@@ -86,6 +90,8 @@ def build(args, device: torch.device, log):
     log(f"setup: {time.time() - t0:.1f}s")
 
     t0 = time.time()
+    encoded = tracing.COUNTS["encoded_bytes"]
+    tracing.enable(args.verbose)
     pts = None
     if args.implicit:
         random_implicit = random_implicit_pack_db if pack \
@@ -103,9 +109,16 @@ def build(args, device: torch.device, log):
                            size=(params.total_n, params.n0, params.n2, d),
                            dtype=pt_dtype(params))
         db = encode_db(pts, params, device)
+    sync(device)
+    tracing.enable(False)
+    spans = [x for x in tracing.drain() if x.name == "spiral.encode"]
+    log(f"db encode: {time.time() - t0:.1f}s ({len(spans)} spiral.encode "
+        f"spans, {sum(x.end_ns - x.start_ns for x in spans) / 1e9:.1f}s; "
+        f"encoded_bytes {tracing.COUNTS['encoded_bytes'] - encoded})")
+    t0 = time.time()
     server = (PackServer if pack else SpiralServer)(params, db, pub)
     sync(device)
-    log(f"db encode: {time.time() - t0:.1f}s")
+    log(f"server: {time.time() - t0:.1f}s")
     return params, pack, client, server, pts, rng
 
 

@@ -46,7 +46,8 @@ def encode_factored_db(pts: np.ndarray | Iterable[np.ndarray],
     sub-databases (total_n, n0, n2, d) one at a time: a sequence, or an
     iterator with `factor` = F.  Each is encoded straight into its column
     block of the (2, d, K, F*num_per*n2) database on `device` (encode_db's
-    blocks), so the host holds one sub-database at a time."""
+    blocks, a spiral.encode span each while tracing is on), so the host
+    holds one sub-database at a time."""
     if isinstance(pts, np.ndarray):
         subs, factor = (pts[:, f] for f in range(pts.shape[1])), pts.shape[1]
     else:

@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..params import B_I, P_I, Params
 from ..arith import ntt
 from ..arith.crt import residues_from_values
@@ -165,9 +166,14 @@ def encode_db(pts: np.ndarray, params: Params, device,
     """Center mod p_db, lift, NTT on `device`, and write the K2 layout
     (encode_rows), further index ii at row position bitrev(ii).  `out`, a
     (2, d, K, num_per*n2) view on `device`, takes the encoding in place of
-    a new tensor (a factored database's column block)."""
+    a new tensor (a factored database's column block).  Traced as one
+    spiral.encode span (host time: the last block's work may still run on
+    the card when it ends); tracing.COUNTS["encoded_bytes"] adds the bytes
+    it writes."""
     p = params
-    perm = torch.from_numpy(bitrev_perm(p.num_per)).to(device)
-    rows = pts.reshape(p.dim0, p.num_per, p.n0, p.n2, p.poly_len)
-    return EncodedDb(data=encode_rows(rows, p, device, perm, out),
-                     params=params)
+    with tracing.span("encode"):
+        perm = torch.from_numpy(bitrev_perm(p.num_per)).to(device)
+        rows = pts.reshape(p.dim0, p.num_per, p.n0, p.n2, p.poly_len)
+        data = encode_rows(rows, p, device, perm, out)
+    tracing.COUNTS["encoded_bytes"] += data.numel() * data.element_size()
+    return EncodedDb(data=data, params=params)

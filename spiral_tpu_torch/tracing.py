@@ -2,15 +2,16 @@
 
 Off by default, switched by ``enable(on)``.  ``span(name)`` marks one
 piece of host work where it happens (parse, serve with its stage and
-replay, capture, response with its fetch, pack).  Off, it costs one flag
-check and returns a shared null context.  On, it records a ``Span`` in
-memory (name ``spiral.<name>``, start and end on ``time.perf_counter_ns``,
-the innermost span open when it started as its parent, a request id) and,
-while a profiler runs, opens a ``torch.profiler.record_function`` of the
-same name, so the profiler puts the span on the card's timeline and
-clock.  ``drain()``
-hands the recorded spans over once, when the caller asks for them.  Spans
-are recorded from one thread, the one that serves.
+replay, capture, response with its fetch, pack; in set-up, encode: one
+encode_db call, so one a sub-database of encode_factored_db).  Off, it
+costs one flag check and returns a shared null context.  On, it records
+a ``Span`` in memory (name ``spiral.<name>``, start and end on
+``time.perf_counter_ns``, the innermost span open when it started as its
+parent, a request id) and, while a profiler runs, opens a
+``torch.profiler.record_function`` of the same name, so the profiler puts
+the span on the card's timeline and clock.  ``drain()`` hands the
+recorded spans over once, when the caller asks for them.  Spans are
+recorded from one thread, the one that serves.
 
 The spans of one served call share its request id: the program's query
 count when the call started (``count_queries``).  A span opened outside a
@@ -18,9 +19,10 @@ served call (a query parsed before it, a response packed after it) has
 none.
 
 ``COUNTS`` is always counted: ``queries`` served (one a query through a
-served program, B for a batch) and ``captures`` (programs captured as
-CUDA graphs, GraphRunner.prepare).  Kernel launches stay in
-kernels.LAUNCHES.
+served program, B for a batch), ``captures`` (programs captured as
+CUDA graphs, GraphRunner.prepare) and ``encoded_bytes`` (the bytes
+encode_db writes to the device: the whole database over a factored
+database's sub-databases).  Kernel launches stay in kernels.LAUNCHES.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import time
 
 import torch
 
-COUNTS = {"queries": 0, "captures": 0}
+COUNTS = {"queries": 0, "captures": 0, "encoded_bytes": 0}
 
 _on = False
 _spans: list["Span"] = []

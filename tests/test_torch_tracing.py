@@ -4,14 +4,15 @@ profiler; on, a query and a batch of 2 served from wire bytes to wire bytes
 (parse, serve, pack) give the spans of the served path, nested as the
 program nests its calls, one request id a served call, each also a
 profiler event; the query counter counts either way; and last_timings
-holds the six stages of each served call."""
+holds the six stages of each served call.  The database encoder's
+spiral.encode spans (one a sub-database) and its encoded_bytes count."""
 import collections
 
 import numpy as np
 import pytest
 import torch
 
-from spiral_tpu_torch import pir, serialize, tracing
+from spiral_tpu_torch import factored, pir, serialize, tracing
 from spiral_tpu_torch.params import preset
 from spiral_tpu_torch.pir import SPIRAL_STAGES, SpiralClient, SpiralServer
 from spiral_tpu_torch.server.db import encode_db, random_db
@@ -119,3 +120,30 @@ def test_spans_of_a_query_and_a_batch(served):
     assert {n for n in names if n.startswith("spiral.")} == {
         "spiral.parse", "spiral.serve", "spiral.stage", "spiral.replay",
         "spiral.response", "spiral.fetch", "spiral.pack"}
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["on", "off"])
+def test_encode_spans_and_bytes(on):
+    """encode_factored_db at F = 4: on, one spiral.encode span a
+    sub-database, outside any served call; on or off, encoded_bytes grows
+    by the encoded tensor's bytes; off, no span."""
+    p = preset("tiny")
+    rng = np.random.default_rng(10)
+    subs = [random_db(p, rng) for _ in range(4)]
+    before = tracing.COUNTS["encoded_bytes"]
+    tracing.drain()
+    tracing.enable(on)
+    try:
+        db = factored.encode_factored_db(iter(subs), p, CPU, factor=4)
+        spans = tracing.drain()
+    finally:
+        tracing.enable(False)
+    assert tracing.COUNTS["encoded_bytes"] - before == \
+        db.data.numel() * db.data.element_size()
+    if not on:
+        assert spans == []
+        return
+    assert [s.name for s in spans] == ["spiral.encode"] * 4
+    assert all(s.parent is None and s.request is None and
+               s.start_ns <= s.end_ns for s in spans)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
