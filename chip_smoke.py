@@ -9,7 +9,7 @@ Phases, each printing its own lines and its wall time:
   2. build of the CUDA kernels from spiral_tpu_torch/csrc (one nvcc per
      source, in parallel): K1 ntt, K2 firstdim, K3 fold, K4 expand,
      K5 fold_batch and fold_pack_batch, K6 fold_pack, K7 pack, K8a auto,
-     K8b fold_ntt and fold_contract;
+     K8b fold_ntt and fold_contract, K9 compose and convert;
   3. each kernel against its plain PyTorch version on the card, for bit
      equality, with both times and the kernel's bound: K1-K4 at the
      spiral_20_256 shapes; K1, K2, K4, K6 and K7 at the spiralpack_20_256
@@ -21,9 +21,12 @@ Phases, each printing its own lines and its wall time:
      fold rounds 1 (t_gsw 9 and 8) and the last, and at spiral_24_256's
      round 1 (t_gsw 11), and K8b-2 at round 1 on p - 1 in every word;
      K3, K4 and K6 at the edges of their clusters (one ct, m_out 1 and 5,
-     t_gsw 8, 9 and 11); the stream presets' shapes (stream_cases: K3
-     and K5 at t_gsw 5, K6 and K5's pack form at t_gsw 3, K7 at m_conv
-     56, K2 on both stream databases at B = 1 and 8); then every fold
+     t_gsw 8, 9 and 11); K9 at the four benchmark cells' shapes
+     (k9_cases: the composition of 256, 1,024 and 8 x 256 cts, the
+     conversion of 63, 72 and 8 x 63); the stream presets' shapes
+     (stream_cases: K3 and K5 at t_gsw 5, K6 and K5's pack form at t_gsw
+     3, K7 at m_conv 56, K2 on both stream databases at B = 1 and 8);
+     then every fold
      round of spiral_20_256 (t_gsw
      9) and spiral_24_256 (t_gsw 11), and round 1 at t_gsw 8, as K3 and
      as a K8b round (K8b-1, K8b-2, K1) on the same inputs, both times on
@@ -33,11 +36,10 @@ Phases, each printing its own lines and its wall time:
      select_params picks for 2^18 x 30,000 B records (SELECTED: 19, at m
      32 and 56 over g 11 rounds), each held bit-equal to its plain
      version and timed, with the sum per query;
-  3c. K1 at each of its 7 launches in one spiral_20_256 query (the
-     expansion's constants cached: the query's a, composition,
-     conversion, first dim; and one closing each fold round that runs
-     K8b, none at spiral_20_256) and K8a at each of its 9 (one per expansion
-     round), and K8a at each of the 11 rounds of a SELECTED query, each
+  3c. K1 at each of its 2 launches in one spiral_20_256 query (the
+     expansion's constants cached: the query's a and first dim; and one
+     closing each fold round that runs K8b, none at spiral_20_256) and
+     K8a at each of its 9 (one per expansion round), and K8a at each of the 11 rounds of a SELECTED query, each
      held bit-equal to its plain version and timed, with the sums and
      bounds per query;
   3d. the SELECTED parameters' fold and first dimension: K3 at each of
@@ -51,8 +53,10 @@ Phases, each printing its own lines and its wall time:
      response rows), then end to end at spiral_20_256: a seeded client, a
      2^20 x 256 B database from a numpy seed encoded on the card, and
      three queries (index 0, total_n - 1 and a random one), each decoded
-     against its record and launching K1 as often as phase 3c lists, with
-     every kernel's launch count over that run;
+     against its record, launching K1 as often as phase 3c lists and K9
+     once for each of composition and conversion, with every kernel's
+     launch count over that run; every graph the server captured (stage
+     chain, served query, batch) records one K9 launch of each mode;
      then a batch of 8 (indices 0, total_n - 1 and six random ones) in
      one process_query_batch, each answer decoded and equal to its
      single-query rows; then the same three queries with the fold forced
@@ -227,6 +231,10 @@ KERNEL_META = {
                  "spiral_tpu/server/fold_pallas.py:704"),
     "fold_contract": ("spiral_tpu_torch/csrc/fold_mxu.cu",
                       "spiral_tpu/server/fold_pallas.py:766"),
+    "compose": ("spiral_tpu_torch/csrc/convert.cu",
+                "none: XLA matmuls, spiral_tpu/server/convert.py:39"),
+    "convert": ("spiral_tpu_torch/csrc/convert.cu",
+                "none: XLA matmuls, spiral_tpu/server/convert.py:56"),
 }
 KERNEL_NOTES = {
     "firstdim": "two forms on the int8 tensor cores, by the pass's query "
@@ -242,16 +250,18 @@ KERNEL_NOTES = {
 # the default single-query fold runs K8b-1 and K8b-2 in its large rounds
 # at t_gsw 11 (fold.round_uses_mxu: rounds 1-4 at spiral_24_256, none at
 # spiral_20_256) and K3 in the others
-SPIRAL_PATH = ("ntt", "firstdim", "fold", "expand", "auto")
+SPIRAL_PATH = ("ntt", "firstdim", "fold", "expand", "auto", "compose",
+               "convert")
 IMPLICIT_PATH = SPIRAL_PATH + ("fold_ntt", "fold_contract")
 PACK_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack", "pack")
-SPIRAL_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_batch")
+SPIRAL_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_batch",
+                     "compose", "convert")
 PACK_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack_batch",
                    "pack")
 # the stream presets upload every ct directly: no expansion at
 # spiralstream_20_256 (both parts direct), so no K4 and no K8a
-STREAM_PATH = ("ntt", "firstdim", "fold")
-STREAM_BATCH_PATH = ("ntt", "firstdim", "fold_batch")
+STREAM_PATH = ("ntt", "firstdim", "fold", "compose", "convert")
+STREAM_BATCH_PATH = ("ntt", "firstdim", "fold_batch", "compose", "convert")
 STREAM_NOT = ("expand", "auto")
 STREAM_PACK_PATH = ("ntt", "firstdim", "fold_pack", "pack")
 STREAM_PACK_BATCH_PATH = ("ntt", "firstdim", "fold_pack_batch", "pack")
@@ -404,6 +414,14 @@ def fold_products(m_out: int, n1: int, n2: int, t: int, d: int) -> int:
     return m_out * n2 * 2 * per
 
 
+def k9_products(N: int, d: int, conv: bool) -> int:
+    """K9 launch: per (ct, limb) the inverse NTT and the 4 digit NTTs of
+    row 0 (and of row 1 when converting), each slot of a digit multiplied
+    into the 6 composed polys (and the 3 V sums when converting)."""
+    rows, outs = (2, 12) if conv else (1, 6)
+    return N * 2 * (rows * 5 * ntt_products(d) + outs * 4 * d)
+
+
 def expand_products(N: int, m: int, d: int) -> int:
     """K4 launch: per (ct, limb) m digit NTTs, each slot multiplied into
     two rows, and the NTT of row 1."""
@@ -515,6 +533,7 @@ def check_kernels(seed: int) -> dict:
     cases.append(pack_case(gen, "pack", (), pp.out_n, pp.m_conv))
 
     cases += batch_cases(gen)
+    cases += k9_cases(gen)
     cases += mxu_cases(gen)
     cases += edge_cases(gen)
     cases += stream_cases(gen)
@@ -535,6 +554,9 @@ def check_case(name, kernel, run, plain, reps, inputs, prods, macs=0,
     computes (default the whole output).  Fails if the two differ."""
     got, want = run(), plain()
     torch.cuda.synchronize()
+    if isinstance(got, tuple):        # K9's conversion: q_pos and q_neg
+        got, want = (torch.cat([t.reshape(-1) for t in x])
+                     for x in (got, want))
     err = int(((got if part is None else part(got)).long() -
                want.long()).abs().max())
     del want
@@ -559,6 +581,45 @@ def check_case(name, kernel, run, plain, reps, inputs, prods, macs=0,
     del got
     torch.cuda.empty_cache()
     return rec
+
+
+def k9_cases(gen) -> list:
+    """Phase 3 cases of K9 at the four benchmark cells' shapes, each held
+    to its plain version (server/convert.py scal_to_mat_batch,
+    convert_plain): the composition of dim0 256 cts (spiral_20_256, and
+    the factored cell's spiral_14_100000), of 1,024 (the SELECTED
+    parameters) and of a batch of 8 x 256 (spiral_20_256.batch8); the
+    conversion of nu_2 t_gsw 63 (7 x 9), 72 (8 x 9, SELECTED) and 8 x 63,
+    against a gadget G2 of random residues."""
+    from spiral_tpu_torch.params import preset
+    from spiral_tpu_torch.server import convert
+
+    cases = []
+    sp, (_, sel, _) = preset("spiral_20_256"), selected()
+    for tag, p, lead in (("256", sp, ()), ("1024", sel, ()),
+                         ("b8_256", sp, (BATCH,))):
+        d, B = p.poly_len, math.prod(lead)
+        cv = rand_residues(gen, lead + (p.dim0, 2, 1, d))
+        W = rand_residues(gen, (p.n1, p.n0 * p.m_conv, d))
+        cases.append((f"compose_{tag}", "compose",
+                      lambda cv=cv, W=W, p=p: convert.compose_cts(cv, W, p),
+                      lambda cv=cv, W=W, p=p: convert.scal_to_mat_batch(
+                          cv, W, p), 20, [cv, W],
+                      k9_products(B * p.dim0, d, False)))
+    for p, lead in ((sp, ()), (sel, ()), (sp, (BATCH,))):
+        d, B, n = p.poly_len, math.prod(lead), p.further_dims * p.t_gsw
+        cv = rand_residues(gen, lead + (n, 2, 1, d))
+        W, V = (rand_residues(gen, (p.n1, 2 * p.m_conv, d))
+                for _ in range(2))
+        g2 = rand_residues(gen, (p.n1, p.m2, d))
+        tag = f"{n}" if not lead else f"b{B}_{n}"
+        cases.append((f"convert_{tag}", "convert",
+                      lambda cv=cv, W=W, V=V, g2=g2, p=p: convert.convert_cts(
+                          cv, W, V, g2, p),
+                      lambda cv=cv, W=W, V=V, g2=g2, p=p:
+                      convert.convert_plain(cv, W, V, g2, p), 20,
+                      [cv, W, V, g2], k9_products(B * n, d, True)))
+    return cases
 
 
 def fold_batch_case(gen, tag: str, t: int, m_out: int, per_q_shape):
@@ -916,14 +977,8 @@ def k1_launches(name: str) -> list[tuple[str, str, int]]:
     from spiral_tpu_torch.params import preset
     from spiral_tpu_torch.server import fold
     p = preset(name)
-    n_gsw = p.further_dims * p.t_gsw
     outs = [p.num_per >> (r + 1) for r in range(p.nu_2)]
     return [("query a", "forward", 1),
-            ("composition", "inverse", p.dim0 * 2),
-            ("composition", "forward", p.dim0 * p.m_conv),
-            ("conversion", "inverse", n_gsw * 2),
-            ("conversion", "forward", n_gsw * p.m_conv),
-            ("conversion", "forward", n_gsw * p.m_conv),
             ("first dim", "inverse", p.num_per * p.n1 * p.n2)] + \
         [(f"fold round {r + 1}", "inverse", m_out * p.n1 * p.n2)
          for r, m_out in enumerate(outs)
@@ -1300,10 +1355,14 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
         if not ok:
             raise SystemExit(f"{name} query {idx} decoded to the wrong "
                              f"record")
-        if not pack and per_query["ntt"] != len(k1_launches(name)):
+        if not pack and (per_query["ntt"] != len(k1_launches(name)) or
+                         per_query["compose"] != 1 or
+                         per_query["convert"] != 1):
             raise SystemExit(f"{name} query {idx}: {per_query['ntt']} K1 "
                              f"launches, phase 3c lists "
-                             f"{len(k1_launches(name))}")
+                             f"{len(k1_launches(name))}; K9 "
+                             f"{per_query['compose']} compose, "
+                             f"{per_query['convert']} convert, want 1 each")
         answered.append((idx, q, resp))
     launches = dict(kernels.LAUNCHES)
     print(f"{name} launches over the path: {launches}", flush=True)
@@ -1343,6 +1402,7 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
     paths, per_q = {name: launches, f"{name} batch": batch}, \
         {name: per_query}
     if not pack:
+        check_k9_captures(name, server, card)
         forced, forced_q = run_fold_forced(name, server, answered, card,
                                            decode=(client, pts))
         paths.update(forced)
@@ -1351,6 +1411,20 @@ def run_path(name: str, seed: int, card: str, pack: bool, path: tuple,
         name, client, server, pub, pts, int(rng.integers(0, params.total_n)),
         pack, path, path_not, card)
     return paths, per_q
+
+
+def check_k9_captures(tag: str, server, card: str) -> None:
+    """Every program `server` captured (its stage chain, its served query,
+    its batch) records one K9 launch of each mode, or the run fails."""
+    recorded = {key: {k: sum(g.launches[k] for g in prog.graphs)
+                      for k in ("compose", "convert")}
+                for key, prog in server.graphs.programs.items()}
+    print(f"{tag} K9 launches recorded per captured program: {recorded} "
+          f"[{card}]", flush=True)
+    if not recorded or any(n != {"compose": 1, "convert": 1}
+                           for n in recorded.values()):
+        raise SystemExit(f"{tag}: a captured program does not record one "
+                         f"K9 launch of each mode: {recorded}")
 
 
 def device_busy_us(prof) -> float:

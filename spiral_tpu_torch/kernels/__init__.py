@@ -28,19 +28,20 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("ntt.cu", "firstdim.cu", "fold.cu", "expand.cu", "pack.cu",
-           "fold_mxu.cu")
+           "fold_mxu.cu", "convert.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "ntt_reg.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # ring degrees the kernels on the register NTT (csrc/ntt_reg.cuh: K1,
-# K3-K7, K4, K8a and K8b-1) are built for, one instance each: the presets'
+# K3-K7, K4, K8a, K8b-1 and K9) are built for, one instance each: the presets'
 # 256 and 2048; their wrappers raise on any other
 REG_NTT_DEGREES = (256, 2048)
 
 LAUNCHES = {"ntt": 0, "firstdim": 0, "fold": 0, "expand": 0,
             "fold_pack": 0, "pack": 0, "fold_batch": 0, "fold_pack_batch": 0,
-            "auto": 0, "fold_ntt": 0, "fold_contract": 0}
+            "auto": 0, "fold_ntt": 0, "fold_contract": 0, "compose": 0,
+            "convert": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -58,6 +59,8 @@ _SIGNATURES = {
     "spiral_fold_ntt": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "spiral_fold_contract_smem": (_I, _I),
     "spiral_fold_contract": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "spiral_compose": (_P, _I, _P, _P, _P, _I, _P),
+    "spiral_convert": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 _lib = None

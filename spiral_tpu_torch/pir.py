@@ -66,7 +66,6 @@ import torch
 from .params import Params
 from .arith import ntt
 from .core.gadget import build_gadget
-from .core.poly import sub_raw
 from .crypto.decode import (Response, decode_response, modswitch_device,
                             response_from_device_rows,
                             responses_from_device_rows)
@@ -75,7 +74,7 @@ from .crypto.keys import SecretKeys, keygen
 from .crypto.publicparams import PublicParams, generate_public_params
 from .crypto.query import (Query, generate_query, reconstruct_cts,
                            seed_words)
-from .server.convert import regev_to_gsw_batch, scal_to_mat_batch
+from .server.convert import compose_cts, convert_cts, k9_takes
 from . import tracing
 from .dist import shard
 from .graphs import GraphRunner, StageClock, Staged, no_mark, static_inputs
@@ -220,6 +219,8 @@ class SpiralServer:
                 self.db = ShardedDb(self._block, params, mesh)
         self.device = self._block.device
         d = params.poly_len
+        if self.device.type == "cuda":
+            k9_takes(params, d)   # composition and conversion on the card
         self._g2_ntt = ntt.forward(build_gadget(params.n1, params.m2, d,
                                                 self.device))
         neg_monomial_ntts(d, self.device)   # made once here
@@ -315,19 +316,15 @@ class SpiralServer:
         return self.expand_batch(seeds, bs)
 
     def compose(self, first_scalars):
-        """([B,] dim0, 2, 1, 2, d) -> ([B,] dim0, n1, n0, 2, d)."""
-        return scal_to_mat_batch(first_scalars, self.pub.W_conv, self.params)
+        """([B,] dim0, 2, 1, 2, d) -> ([B,] dim0, n1, n0, 2, d): one K9
+        launch on the card."""
+        return compose_cts(first_scalars, self.pub.W_conv, self.params)
 
     def convert(self, gsw_scalars):
         """([B,] nu_2*t_gsw, 2, 1, 2, d) -> q_pos, q_neg ([B,] nu_2, n1, m2,
-        2, d)."""
-        p = self.params
-        gsw = regev_to_gsw_batch(
-            gsw_scalars.unflatten(-5, (p.further_dims, p.t_gsw)),
-            self.pub.W_conv, self.pub.V, p)
-        q_pos = gsw.flip(-5)
-        q_neg = sub_raw(self._g2_ntt.expand_as(q_pos), q_pos)
-        return q_pos, q_neg
+        2, d): one K9 launch on the card."""
+        return convert_cts(gsw_scalars, self.pub.W_conv, self.pub.V,
+                           self._g2_ntt, self.params)
 
     def first_dim_batch(self, C_reg_b):
         """(B, dim0, n1, n0, 2, d) -> (B, num_per, n1, n2, 2, d) coeff: K2

@@ -1,18 +1,19 @@
-"""CUDA kernels K1-K8b against their plain PyTorch versions on the card,
+"""CUDA kernels K1-K9 against their plain PyTorch versions on the card,
 bit for bit.  Every test is marked `gpu` and takes the `cuda` fixture, which
 skips it on a machine without a CUDA device.  On the card (no jax there, so skip the suite's
 conftest, which imports it):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 """
+import dataclasses
 from collections import defaultdict
 
 import pytest
 import torch
 
-from spiral_tpu_torch.params import B_I, P_I
+from spiral_tpu_torch.params import B_I, P_I, preset
 from spiral_tpu_torch import kernels
 from spiral_tpu_torch.arith import ntt
-from spiral_tpu_torch.server import expand, firstdim, fold, pack
+from spiral_tpu_torch.server import convert, expand, firstdim, fold, pack
 
 pytestmark = pytest.mark.gpu
 
@@ -353,3 +354,83 @@ def test_factored_fold_outgrows_workspace(cuda, monkeypatch):
     assert kernels.LAUNCHES["fold_ntt"] == 2 and got.shape[0] == F
     monkeypatch.setattr(fold, "MXU_MIN_COLS", {})
     _same(got, server.fold(cts, qp, qn), "fold", 6 + 8)
+
+
+# K9: a cluster of 2 blocks per ct (composition) or 4 (conversion); the
+# composition at dim0 256 and 1,024 and a batch of 8 x 256, the conversion
+# at nu_2 t_gsw 63 (7 x 9) and 72 (8 x 9) and a batch of 8 x 63, random
+# words and every word p - 1 or 0
+K9_WORDS = ["random", "p-1", "0"]
+
+
+def _k9_params(d, nu_2=7, t_gsw=9):
+    return dataclasses.replace(preset("spiral_20_256"), poly_len=d,
+                               nu_2=nu_2, t_gsw=t_gsw)
+
+
+def _k9_words(gen, shape, words):
+    if words == "random":
+        return _residues(gen, shape)
+    x = _residues(gen, shape)
+    for li, p in enumerate((P_I, B_I)):
+        x[..., li, :] = p - 1 if words == "p-1" else 0
+    return x
+
+
+@pytest.mark.parametrize("words", K9_WORDS)
+@pytest.mark.parametrize("d", [256, 2048])
+@pytest.mark.parametrize("lead, N", [((), 256), ((), 1024), ((8,), 256)])
+def test_compose_kernel(cuda, lead, N, d, words):
+    cv = _k9_words(cuda, lead + (N, 2, 1, d), words)
+    W = _k9_words(cuda, (3, 8, d), words)
+    p = _k9_params(d)
+    _same(convert.compose_cts(cv, W, p), convert.scal_to_mat_batch(cv, W, p),
+          "compose")
+
+
+@pytest.mark.parametrize("words", K9_WORDS)
+@pytest.mark.parametrize("d", [256, 2048])
+@pytest.mark.parametrize("lead, nu_2", [((), 7), ((), 8), ((8,), 7)])
+def test_convert_kernel(cuda, lead, nu_2, d, words):
+    p = _k9_params(d, nu_2=nu_2)
+    cv = _k9_words(cuda, lead + (nu_2 * 9, 2, 1, d), words)
+    W, V = (_k9_words(cuda, (3, 8, d), words) for _ in range(2))
+    g2 = _k9_words(cuda, (3, p.m2, d), words)
+    got = convert.convert_cts(cv, W, V, g2, p)
+    want = convert.convert_plain(cv, W, V, g2, p)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernels.LAUNCHES["convert"] == 1
+
+
+def test_k9_batch_as_a_slice(cuda):
+    """Both modes take a batch sliced from the expansion's output (B,
+    dim0 + nu_2 t_gsw, ...), as the batch path passes it."""
+    d, p = 2048, _k9_params(2048)
+    cv = _residues(cuda, (8, 256 + 63, 2, 1, d))
+    W, V = (_residues(cuda, (3, 8, d)) for _ in range(2))
+    g2 = _residues(cuda, (3, p.m2, d))
+    first, gsw = cv[:, :256], cv[:, 256:]
+    assert not first.is_contiguous() and not gsw.is_contiguous()
+    assert torch.equal(convert.compose_cts(first, W, p),
+                       convert.scal_to_mat_batch(first, W, p))
+    got = convert.convert_cts(gsw, W, V, g2, p)
+    want = convert.convert_plain(gsw, W, V, g2, p)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernels.LAUNCHES["compose"] == kernels.LAUNCHES["convert"] == 1
+
+
+def test_k9_shapes_only(cuda):
+    """K9 takes m_conv 4 and d in kernels.REG_NTT_DEGREES only."""
+    cv = _residues(cuda, (63, 2, 1, 256))
+    W, V = (_residues(cuda, (3, 8, 256)) for _ in range(2))
+    for p in (dataclasses.replace(_k9_params(256), t_conv=8),
+              _k9_params(64)):
+        x = cv[..., :p.poly_len].contiguous()
+        w, v = W[..., :p.poly_len].contiguous(), V[..., :p.poly_len]
+        g2 = _residues(cuda, (3, p.m2, p.poly_len))
+        with pytest.raises(ValueError):
+            convert.compose_cts(x, w, p)
+        with pytest.raises(ValueError):
+            convert.convert_cts(x, w, v.contiguous(), g2, p)
+    assert kernels.LAUNCHES["compose"] == kernels.LAUNCHES["convert"] == 0
