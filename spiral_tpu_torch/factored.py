@@ -16,8 +16,9 @@ once over the F survivors.  Expansion, composition and conversion are a
 SpiralServer's, run once per query; process_query_fused runs them before
 its clock starts and times first dim + fold + modswitch, as the JAX
 server's does (spiral_tpu/factored.py:82-85, 132-147): on a CUDA server
-the query stages are a chain of three CUDA graphs, one per stage, and the
-tail one replay of its CUDA graph, the query stages' outputs staged into
+the query stages (the pipeline's front, serving.py) are a chain of three
+CUDA graphs, one per stage, and the tail (its middle and end) one replay
+of its CUDA graph, the query stages' outputs staged into
 its static inputs (graphs.py's GraphRunner).  _run_single and
 process_query (its stage chain) serve the whole query as SpiralServer's
 do.
@@ -32,9 +33,9 @@ import torch
 
 from .params import Params
 from . import tracing
-from .crypto.decode import modswitch_device, responses_from_device_rows
-from .graphs import StageClock, Staged, no_mark
-from .pir import ServerTimings, SpiralClient, SpiralServer, stage_queries
+from .crypto.decode import responses_from_device_rows
+from .graphs import Staged
+from .pir import SpiralClient, SpiralServer
 from .server.db import EncodedDb, encode_db
 from .server.fold import fold_rounds
 
@@ -96,26 +97,6 @@ class FactoredSpiralServer(SpiralServer):
 
     _response = staticmethod(responses_from_device_rows)
 
-    def _stage_times(self, key: tuple, clock: StageClock) -> ServerTimings:
-        """The tail's three stages (process_query_fused times only them),
-        else SpiralServer's six."""
-        if key[0] != "tail":
-            return super()._stage_times(key, clock)
-        t = clock.intervals_us()
-        return ServerTimings(first_multiply_us=t[0], folding_us=t[1],
-                             modswitch_us=t[2])
-
-    def _tail(self, C_reg, q_pos, q_neg, mark=no_mark):
-        """First dim, fold and modulus switch of one query, `mark` called
-        after each: the F survivors' rows on the device."""
-        cts = self.first_dim(C_reg)
-        mark()
-        final = self.fold(cts, q_pos, q_neg)
-        mark()
-        rows = modswitch_device(final, self.params)
-        mark()
-        return rows
-
     def process_query_fused(self, query):
         """The serving path (spiral_tpu/factored.py:132-147): expansion,
         composition and conversion first, untimed (on a CUDA server a
@@ -126,13 +107,15 @@ class FactoredSpiralServer(SpiralServer):
         -> (list of F Responses, seconds); last_timings holds the tail's
         stages."""
         with tracing.span("serve", request=tracing.count_queries(1)):
-            key, body = stage_queries(self, "query_stages", [query],
-                                      self._query_stages, QUERY_STAGES,
-                                      chain=True)
+            with tracing.span("stage"):
+                key, body, sources = self._prepare(
+                    "query_stages", [query], self._front, QUERY_STAGES,
+                    chain=True)
+                self.graphs.stage(key, sources)
             sources = [Staged.whole(t) for t in self.graphs.replay(key, body)]
 
             def tail():
-                return [x.cpu() for x in self.graphs.run(
+                return [x[0].cpu() for x in self.graphs.run(
                     ("tail", False, 1), self._tail, sources, TAIL_STAGES)]
 
             tail()

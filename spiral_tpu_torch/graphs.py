@@ -24,12 +24,13 @@ the batch size), as jax.jit compiles once per shape:
   call's inputs never reach an earlier call's replay, and its outputs
   never alias an earlier call's.
 
-Each program's stages are timed by a StageClock (its ``clock``, read
-lazily; the runner remembers the key it replayed last, ``last``).  A path
-captured as one graph records its clock into the graph: the body's stage
-marks, and one mark before its first stage, are timing events captured
-as event-record nodes, which every replay records again.
-A chain's clock marks CUDA events between its stages' replays.
+Each program keeps its stage names (``stages``), and its stages are timed
+by a StageClock (its ``clock``, read lazily; the runner remembers the key
+it replayed last, ``last``).  A path captured as one graph records its
+clock into the graph: the body's stage marks, and one mark before its
+first stage, are timing events captured as event-record nodes, which
+every replay records again.  A chain's clock marks CUDA events between
+its stages' replays.
 
 A chain is replayed whole, from its first stage, in every call, and no
 other graph replays between its stages: the pool is shared, so another
@@ -237,12 +238,12 @@ def capture(run: Callable[[Callable[[], None]], tuple], stages: int,
 
 
 class _Program:
-    """A path's static inputs and, on the card, its graphs (one, or one per
-    stage of a chain); its static outputs; the StageClock of its last
-    run."""
+    """A path's static inputs and stage names and, on the card, its graphs
+    (one, or one per stage of a chain); its static outputs; the StageClock
+    of its last run."""
 
-    def __init__(self, inputs: list[torch.Tensor]):
-        self.inputs = inputs
+    def __init__(self, inputs: list[torch.Tensor], stages: tuple):
+        self.inputs, self.stages = inputs, stages
         self.graphs: list[Graph] = []
         self.chain = False
         self.outputs: tuple | None = None
@@ -266,13 +267,13 @@ class GraphRunner:
     def prepare(self, key: tuple, body: Callable, sources: list[Staged],
                 stages: tuple, chain: bool = False):
         """Make `key`'s program unless it exists: its static inputs from
-        `sources` and, on the card, one warm run of the body and the
-        capture of body(*inputs, mark), which calls mark after each of
-        `stages`: one graph, or with `chain` one graph per stage.  A failed
-        capture names the stage it was in."""
+        `sources`, its stage names `stages` and, on the card, one warm run
+        of the body and the capture of body(*inputs, mark), which calls
+        mark after each stage: one graph, or with `chain` one graph per
+        stage.  A failed capture names the stage it was in."""
         if key in self.programs:
             return
-        prog = _Program(static_inputs(sources, self.device))
+        prog = _Program(static_inputs(sources, self.device), stages)
         if self.device.type != "cuda":
             self.programs[key] = prog
             return

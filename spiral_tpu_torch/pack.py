@@ -5,19 +5,15 @@ testHighRate), on one device.
 The scheme runs out_n^2 scalar-Regev PIR pipelines ("trials") over 1 x 1
 poly records as one batched program and packs the out_n^2 result cts into
 one (out_n+1) x out_n matrix ct before the two-modulus switch.
-PackServer.process_query runs: expansion (K1, K8a, K4), conversion to GSW
+PackServer runs: expansion (K1, K8a, K4), conversion to GSW
 (``regev_to_simple_gsw``), the first-dimension multiply with n1 = 2 query
 rows (K2) and its inverse NTT, the unsigned fold rounds (K6), packing (K7)
-and its inverse NTT, and the modulus switch.  On a CUDA server the six
-stages are a chain of CUDA graphs, one per stage (the JAX stage jits,
-spiral_tpu/pack.py:467-473; pir.serve_stages), each timed by CUDA events
-between the replays; on the CPU the same chain runs eagerly under the
-host clock.  _run_single serves a query as pir.py's
-servers do: on a CUDA server one replay of a CUDA graph of the whole chain
-(the JAX ``_run_single`` chains its stage jits with no sync,
-spiral_tpu/pack.py:604-625), captured on first use per query form; on the
-CPU the same staged runner, eagerly.  process_query_fused times it
-(pir.serve_fused).  process_query_batch serves a batch (the JAX
+and its inverse NTT, and the modulus switch, and serves them through
+serving.Server as pir.py's servers do: process_query as a chain of CUDA
+graphs, one per stage (the JAX stage jits, spiral_tpu/pack.py:467-473),
+_run_single and process_query_fused as one CUDA graph of the whole
+pipeline (the JAX ``_run_single`` chains its stage jits with no sync,
+spiral_tpu/pack.py:604-625), and process_query_batch (the JAX
 ``full_packed_batch``, pack.py:501-536) with one replay of the graph for
 (form, B): K2 streams the database once for all queries, the fold is one
 K5 launch per round and K7 one launch.  The server takes an EncodedDb or
@@ -48,8 +44,7 @@ from .arith import ntt
 from .arith.crt import const_residues, residues_from_values
 from .core.gadget import build_gadget, gadget_invert_raw
 from .core.poly import matmul_raw, scalar_mul_raw, sub_raw
-from .crypto.decode import (Response, decode_response, modswitch_device,
-                            response_from_device_rows)
+from .crypto.decode import Response, decode_response, modswitch_device
 from .crypto.encrypt import Encryptor
 from .crypto.keys import SecretKeys, keygen
 from .crypto.publicparams import (expansion_keyswitch_matrices,
@@ -58,9 +53,8 @@ from .crypto.query import (Query, encrypt_b_batch, gsw_digit_values,
                            new_seed, packed_query, reconstruct_cts,
                            sigmas_ntt)
 from .dist import shard
-from .graphs import GraphRunner, no_mark
-from .pir import (ServerTimings, StageClock, db_tensor, serve_batch,
-                  serve_fused, serve_single, serve_stages, stack_queries)
+from .graphs import no_mark
+from .serving import Server, db_tensor, stack_queries
 from .server import db as db_mod
 from .server.db import EncodedDb, ImplicitDb, bitrev_perm
 from .server.expand import coefficient_expansion, neg_monomial_ntts
@@ -241,7 +235,7 @@ def regev_to_simple_gsw(cv: torch.Tensor, V: torch.Tensor,
                                            2, d))
 
 
-class PackServer:
+class PackServer(Server):
     def __init__(self, params: Params, db: EncodedDb | ImplicitDb,
                  pub: PackPublicParams, mesh=None):
         self.params, self.db, self.pub, self.mesh = params, db, pub, mesh
@@ -254,30 +248,11 @@ class PackServer:
             self._block = shard.shard_db_rows(
                 db.data, params.out_n ** 2 * params.num_per, mesh)
             self.db = db_mod.ShardedDb(self._block, params, mesh)
-        self.device = self._block.device
+        super().__init__(self._block.device, PACK_STAGES)
         self.num_chunks = db.num_chunks if isinstance(db, ImplicitDb) else 1
         self._g_ntt = ntt.forward(build_gadget(2, 2 * params.t_gsw,
                                                params.poly_len, self.device))
         neg_monomial_ntts(params.poly_len, self.device)   # made once here
-        self.graphs = GraphRunner(self.device, type(self).__name__)
-        self.stages = PACK_STAGES
-
-    @property
-    def serving(self) -> str:
-        """"cuda_graph" (a CUDA server) or "eager" (a CPU server)."""
-        return "cuda_graph" if self.device.type == "cuda" else "eager"
-
-    def release_graphs(self) -> None:
-        """Free the server's CUDA graphs and their pool."""
-        self.graphs.release()
-
-    @property
-    def last_timings(self) -> ServerTimings | None:
-        """The stage times of the server's last served call, read lazily
-        (pir.SpiralServer.last_timings)."""
-        key = self.graphs.last
-        return None if key is None else _timings(
-            self.graphs.programs[key].clock)
 
     # -- stages (spiral_tpu/pack.py PackServer._build_stages); the *_batch
     # forms, convert and pack take and give a leading query axis --
@@ -330,11 +305,9 @@ class PackServer:
         1, 2, d) and q_pos, q_neg (B, nu_2, 2, 2*t_gsw, 2, d).  A direct
         batch's reconstruction is its expansion stage, conv_direct its
         conversion."""
-        return self._query_stages(*stack_queries(queries, self.device),
-                                  mark)
+        return self._front(*stack_queries(queries, self.device), mark)
 
-    def _query_stages(self, seeds, bs: torch.Tensor, direct: bool,
-                      mark=no_mark):
+    def _front(self, seeds, bs: torch.Tensor, direct: bool, mark=no_mark):
         """query_stages_batch on the batch's seeds (or their seed_words)
         and b rows."""
         if direct:
@@ -362,10 +335,6 @@ class PackServer:
         cts = res.reshape(2, d, B, 2, T, p.num_per).permute(2, 4, 5, 3, 0, 1)
         return ntt.inverse(cts[:, :, :, :, None])
 
-    def first_dim(self, first):
-        """first (dim0, 2, 1, 2, d) -> (T, num_per, 2, 1, 2, d) coeff."""
-        return self.first_dim_batch(first[None])[0]
-
     def fold_batch(self, cts_b, q_pos_b, q_neg_b):
         """-> the (B, T, 2, 1, 2, d) survivors, coeff: one K5 launch per
         round."""
@@ -382,83 +351,23 @@ class PackServer:
         return ntt.inverse(pack_ciphertexts(result.contiguous(),
                                             self.pub.v_W))
 
-    def _rows(self, seeds, bs, direct: bool, mark=no_mark):
-        """Every stage of one query (its seeds or seed_words and b rows (1,
-        n, 1, 1, 2, d)), `mark` called after each: the response rows on
-        the device."""
-        first, q_pos, q_neg = (x[0] for x in self._query_stages(
-            seeds, bs, direct, mark))
-        cts = self.first_dim(first)
-        mark()
-        result = self.fold(cts, q_pos, q_neg)
-        mark()
-        packed = self.pack(result)
+    def _end(self, results, mark=no_mark):
+        """Packing, then the modulus switch, `mark` called after each: the
+        rows on the device."""
+        packed = self.pack(results)
         mark()
         rows = modswitch_device(packed, self.params)
         mark()
         return rows
 
-    def _batch_rows(self, seeds, bs, direct: bool, mark=no_mark):
-        """Every stage of a batch, `mark` called after each: its rows on
-        the device."""
-        first_b, q_pos_b, q_neg_b = self._query_stages(seeds, bs, direct,
-                                                       mark)
-        cts_b = self.first_dim_batch(first_b)
-        mark()
-        results = self.fold_batch(cts_b, q_pos_b, q_neg_b)
-        mark()
-        packed_b = self.pack(results)
-        mark()
-        rows = modswitch_device(packed_b, self.params)
-        mark()
-        return rows
-
-    def _run_eager(self, query: Query, mark=no_mark):
-        """Every stage of one query, enqueued eagerly: its rows."""
-        return self._rows(*stack_queries([query], self.device), mark)
-
-    def _run_batch(self, queries: list[Query], mark=no_mark):
-        """Every stage of a batch, enqueued eagerly: its rows."""
-        return self._batch_rows(*stack_queries(queries, self.device), mark)
-
-    def _run_single(self, query: Query):
-        """One query served (pir.serve_single): fresh response rows on the
-        device."""
-        return serve_single(self, query)
-
-    _response = staticmethod(response_from_device_rows)
-
-    def process_query(self, query: Query):
-        """Answer one query of either form: (Response, ServerTimings), the
-        stages timed one by one (pir.serve_stages)."""
-        rows = serve_stages(self, query)
-        return self._response(*rows), self.last_timings
-
-    def process_query_fused(self, query: Query):
-        """The serving path: (Response, seconds), the seconds of a second
-        run (pir.serve_fused) until the response rows are on the host."""
-        return serve_fused(self, query)
-
     def process_query_batch(self, queries: list[Query]):
-        """Answer a batch of queries of one form: (list[Response],
-        seconds), the window from the staging of the batch until the
-        response rows are on the host; a CUDA
-        server replays the graph for (form, B), captured on first use; its
-        stage times are ``last_timings``.  Over an implicit database, or
-        for a batch that mixes forms, it raises ValueError."""
+        """Server.process_query_batch; over an implicit database it raises
+        ValueError."""
         if isinstance(self.db, ImplicitDb):
             raise ValueError(
                 "batched pack serving needs an encoded database, not an "
                 "implicit one")
-        return serve_batch(self, queries)
-
-
-def _timings(clock: StageClock) -> ServerTimings:
-    """The six pack stage intervals of a StageClock."""
-    t = clock.intervals_us()
-    return ServerTimings(expansion_us=t[0], conversion_us=t[1],
-                         first_multiply_us=t[2], folding_us=t[3],
-                         packing_us=t[4], modswitch_us=t[5])
+        return super().process_query_batch(queries)
 
 
 def run_pack(params: Params, idx: int | None = None, seed: int = 0,

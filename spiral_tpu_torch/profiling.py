@@ -23,7 +23,8 @@ import time
 import torch
 
 from .pir import SPIRAL_STAGES as STAGES
-from .pir import SpiralServer, serve_single
+from .pir import SpiralServer
+from .serving import stage_timings
 
 
 def device_stage_times(server: SpiralServer, query, iters: int = 8,
@@ -41,16 +42,14 @@ def device_stage_times(server: SpiralServer, query, iters: int = 8,
         raise ValueError("stage profiling takes a packed query, not the "
                          "direct form")
     eager = [x.cpu() for x in server._run_eager(query)]
-    serve_single(server, query)       # captures on first use, stages query
-    key = ("single", False, 1)
-    prog = server.graphs.programs[key]
+    server._run_single(query)       # captures on first use, stages query
+    prog = server.graphs.programs[server.graphs.last]
     cuda = bool(prog.graphs)
     if cuda:
         run = prog.graphs[0].graph.replay
     else:
         def run():
-            server.graphs.replay(
-                key, lambda w, b, mark: server._rows(w, b, False, mark))
+            server._run_single(query)
     best, stages = float("inf"), None
     for _ in range(reps):
         seconds = _seconds_per_run(run, iters, cuda)
@@ -60,8 +59,9 @@ def device_stage_times(server: SpiralServer, query, iters: int = 8,
     if not all(torch.equal(a, b) for a, b in zip(rows, eager)):
         raise RuntimeError("the profiled graph's response rows differ "
                            "from the eager stages' rows")
-    out = {f"{stage}_us": round(max(0.0, t))
-           for stage, t in zip(STAGES, stages)}
+    times = stage_timings(prog.stages, stages)
+    out = {f"{s}_us": round(max(0.0, getattr(times, f"{s}_us")))
+           for s in STAGES}
     out["fused_total_us"] = round(best * 1e6)
     return out
 

@@ -155,7 +155,7 @@ def test_fused_window_excludes_query_stages(monkeypatch):
             return fn(*args, **kwargs)
         return run
 
-    for name in ("query_scalars_batch", "compose", "convert", "first_dim",
+    for name in ("expand_batch", "compose", "convert", "first_dim_batch",
                  "fold"):
         monkeypatch.setattr(server, name, recorded(name, getattr(server,
                                                                  name)))
@@ -165,8 +165,9 @@ def test_fused_window_excludes_query_stages(monkeypatch):
     monkeypatch.undo()
     assert log.count("clock") == 2, log
     start = log.index("clock")
+    assert log[:3] == ["expand_batch", "compose", "convert"], log
     window = log[start + 1:log.index("clock", start + 1)]
-    assert window == ["first_dim", "fold"], log
+    assert window == ["first_dim_batch", "fold"], log
     assert seconds > 0
     _same(got, want)
     np.testing.assert_array_equal(factored.decode_factored(client, got),
