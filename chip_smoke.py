@@ -9,7 +9,8 @@ Phases, each printing its own lines and its wall time:
   2. build of the CUDA kernels from spiral_tpu_torch/csrc (one nvcc per
      source, in parallel): K1 ntt, K2 firstdim, K3 fold, K4 expand,
      K5 fold_batch and fold_pack_batch, K6 fold_pack, K7 pack, K8a auto,
-     K8b fold_ntt and fold_contract, K9 compose and convert;
+     K8b fold_ntt and fold_contract, K9 compose and convert, K10
+     threefry;
   3. each kernel against its plain PyTorch version on the card, for bit
      equality, with both times and the kernel's bound: K1-K4 at the
      spiral_20_256 shapes; K1, K2, K4, K6 and K7 at the spiralpack_20_256
@@ -23,7 +24,9 @@ Phases, each printing its own lines and its wall time:
      K3, K4 and K6 at the edges of their clusters (one ct, m_out 1 and 5,
      t_gsw 8, 9 and 11); K9 at the four benchmark cells' shapes
      (k9_cases: the composition of 256, 1,024 and 8 x 256 cts, the
-     conversion of 63, 72 and 8 x 63); the stream presets' shapes
+     conversion of 63, 72 and 8 x 63); K10 at the four cells' replay (one
+     packed ct, a query and a batch of 8) and the stream variant's 542
+     direct cts (k10_cases); the stream presets' shapes
      (stream_cases: K3 and K5 at t_gsw 5, K6 and K5's pack form at t_gsw
      3, K7 at m_conv 56, K2 on both stream databases at B = 1 and 8);
      then every fold
@@ -154,7 +157,10 @@ time of a traced served query, the served and pipelined seconds eager
 and as a graph, the device's busy share of each, and the capture seconds
 and pool bytes of each graph (the stage chain's summed over its graphs,
 captured by the first process_query of each path, capture_chain); the
-line "graphs {...}" before the kernels' JSON holds them all.  Since the
+line "graphs {...}" before the kernels' JSON holds them all.  Each
+server's captured programs are then listed with the launches one replay
+makes and their pool bytes (report_captures); every program that takes a
+query's seeds records exactly one K10 launch, or the run fails.  Since the
 servers serve through graphs, the process_query, served, batch and
 pipelined runs of phases 4-11 replay graphs, the mesh servers' too; the
 fold forced to one engine releases the server's graphs before and after
@@ -206,6 +212,11 @@ INT8_MACS_PER_S = 1979e12 / 2
 # K2's work is counted at the card's cheapest exact route: a modular
 # product of two 32-bit words as 16 int8 multiply-adds of 8-bit limbs
 K2_MACS_PER_PRODUCT = 16
+# K10's work: a threefry2x32 hash is 20 mixes of add, funnel shift and
+# xor and 5 key injections; the bound counts the 20 funnel shifts and 20
+# xors, which only the integer ALU executes (64 a clock an SM, the
+# integer rate), since the additions may run on the FMA pipe as IMAD
+K10_OPS_PER_HASH = 40
 
 # kernel -> (its CUDA source, the TPU kernel's function it replaces)
 KERNEL_META = {
@@ -235,6 +246,8 @@ KERNEL_META = {
                 "none: XLA matmuls, spiral_tpu/server/convert.py:39"),
     "convert": ("spiral_tpu_torch/csrc/convert.cu",
                 "none: XLA matmuls, spiral_tpu/server/convert.py:56"),
+    "threefry": ("spiral_tpu_torch/csrc/threefry.cu",
+                 "none: jax.random in XLA, spiral_tpu/core/sampling.py:55"),
 }
 KERNEL_NOTES = {
     "firstdim": "two forms on the int8 tensor cores, by the pass's query "
@@ -246,27 +259,34 @@ KERNEL_NOTES = {
                      "with the prescale _fold_qpre), not a pallas_call: "
                      "the JAX mxu fold's contraction outside its Pallas "
                      "kernel _fold_ntt_call",
+    "threefry": "products count the integer ALU's uint32 operations "
+                "(K10_OPS_PER_HASH a hash, four hashes a counter) at the "
+                "integer rate",
 }
 # the default single-query fold runs K8b-1 and K8b-2 in its large rounds
 # at t_gsw 11 (fold.round_uses_mxu: rounds 1-4 at spiral_24_256, none at
 # spiral_20_256) and K3 in the others
 SPIRAL_PATH = ("ntt", "firstdim", "fold", "expand", "auto", "compose",
-               "convert")
+               "convert", "threefry")
 IMPLICIT_PATH = SPIRAL_PATH + ("fold_ntt", "fold_contract")
-PACK_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack", "pack")
+PACK_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack", "pack",
+             "threefry")
 SPIRAL_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_batch",
-                     "compose", "convert")
+                     "compose", "convert", "threefry")
 PACK_BATCH_PATH = ("ntt", "firstdim", "expand", "auto", "fold_pack_batch",
-                   "pack")
+                   "pack", "threefry")
 # the stream presets upload every ct directly: no expansion at
-# spiralstream_20_256 (both parts direct), so no K4 and no K8a
-STREAM_PATH = ("ntt", "firstdim", "fold", "compose", "convert")
-STREAM_BATCH_PATH = ("ntt", "firstdim", "fold_batch", "compose", "convert")
+# spiralstream_20_256 (both parts direct), so no K4 and no K8a; every
+# query's a halves are replayed from its seed (K10)
+STREAM_PATH = ("ntt", "firstdim", "fold", "compose", "convert", "threefry")
+STREAM_BATCH_PATH = ("ntt", "firstdim", "fold_batch", "compose", "convert",
+                     "threefry")
 STREAM_NOT = ("expand", "auto")
-STREAM_PACK_PATH = ("ntt", "firstdim", "fold_pack", "pack")
-STREAM_PACK_BATCH_PATH = ("ntt", "firstdim", "fold_pack_batch", "pack")
+STREAM_PACK_PATH = ("ntt", "firstdim", "fold_pack", "pack", "threefry")
+STREAM_PACK_BATCH_PATH = ("ntt", "firstdim", "fold_pack_batch", "pack",
+                          "threefry")
 # tiny_subround expands both parts of its query on the card
-SUBROUND_PATH = ("expand", "auto")
+SUBROUND_PATH = ("expand", "auto", "threefry")
 # the fold's engine forced in every round: (tag, fold.MXU_MIN_COLS, the
 # kernels it must launch, the kernels it must not)
 FOLD_FORCED = (("K3 every round", {}, ("fold",), ("fold_ntt",
@@ -534,6 +554,7 @@ def check_kernels(seed: int) -> dict:
 
     cases += batch_cases(gen)
     cases += k9_cases(gen)
+    cases += k10_cases()
     cases += mxu_cases(gen)
     cases += edge_cases(gen)
     cases += stream_cases(gen)
@@ -620,6 +641,55 @@ def k9_cases(gen) -> list:
                       convert.convert_plain(cv, W, V, g2, p), 20,
                       [cv, W, V, g2], k9_products(B * n, d, True)))
     return cases
+
+
+def k10_cases() -> list:
+    """Phase 3 cases of K10, held to uniform_residues_words_plain: the
+    replay of every benchmark cell (one packed ct of d 2,048; B = 1 for
+    spiral_20_256.single, the factored and the 30 KB cells, B = 8 for
+    spiral_20_256.batch8) and of spiralstream_20_256's 542 direct cts, a
+    query and a batch of 8; seeds with negative and int32 edges."""
+    from spiral_tpu_torch.core import sampling
+    from spiral_tpu_torch.crypto.query import seed_words
+
+    seeds = [0, -1, 2**31 - 1, -(2**31), 987654, -123456789, 7, 1 << 30]
+    cases = []
+    for n_cts in (1, 542):
+        for B in (1, BATCH):
+            words = seed_words(seeds[:B], "cuda")
+            shape = (n_cts, 1, 1, 2048)
+            cases.append((
+                f"threefry_b{B}_{n_cts}", "threefry",
+                lambda w=words, s=shape: sampling.uniform_residues_words(
+                    w, s),
+                lambda w=words, s=shape:
+                sampling.uniform_residues_words_plain(w, s), 20, [words],
+                B * math.prod(shape) * 4 * K10_OPS_PER_HASH))
+    return cases
+
+
+def report_captures(tag: str, server, card: str) -> dict:
+    """Print every program `server` captured with the launches one replay
+    makes (summed over its graphs) and its pool bytes, and return them.
+    Every program that takes the query's seeds (all but the factored
+    tail, which starts from the expanded query) records exactly one K10
+    launch, or the run fails."""
+    recorded, bad = {}, {}
+    for key, prog in server.graphs.programs.items():
+        launches = collections.Counter()
+        for g in prog.graphs:
+            launches.update({k: v for k, v in g.launches.items() if v})
+        recorded[str(key)] = {
+            "graphs": len(prog.graphs), "launches": dict(launches),
+            "pool_bytes": sum(g.pool_bytes for g in prog.graphs)}
+        if launches["threefry"] != (key[0] != "tail"):
+            bad[str(key)] = launches["threefry"]
+    print(f"{tag} programs captured (launches a replay, pool bytes): "
+          f"{json.dumps(recorded)} [{card}]", flush=True)
+    if bad:
+        raise SystemExit(f"{tag}: K10 launches a replay {bad}, want one in "
+                         f"every program but the factored tail")
+    return recorded
 
 
 def fold_batch_case(gen, tag: str, t: int, m_out: int, per_q_shape):
@@ -1619,6 +1689,7 @@ def check_graph_serving(tag: str, server, queries: list, check,
     stats = server.graphs.stats()
     pool = sum(s["pool_bytes"] for s in stats.values())
     out["pool_total_bytes"] = pool
+    out["programs"] = report_captures(tag, server, card)
     print(f"{tag} graph pool: {len(stats)} programs of "
           f"{sum(s['graphs'] for s in stats.values())} graphs, "
           f"{pool / 2**20:.1f} MiB in all [{card}]", flush=True)

@@ -4,7 +4,8 @@ Client noise comes from a torch.Generator on the CPU, so a seed gives the
 same keys whatever device the client computes on; it does not reproduce
 jax.random's bits.  ``uniform_residues_words`` of ``uniform_key_words`` is
 the one sampler that must match JAX's uniform_residues bit for bit: the
-server rebuilds query `a` halves with it.
+server rebuilds query `a` halves with it (kernel K10 on the card, its
+plain twin ``uniform_residues_words_plain`` on the CPU).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from functools import lru_cache
 
 import torch
 
+from .. import kernels
 from ..params import B_I, P_I
 from . import threefry
 
@@ -60,7 +62,33 @@ def uniform_key_words(keys: list[tuple[int, int]], device) -> torch.Tensor:
 def uniform_residues_words(words: torch.Tensor, shape) -> torch.Tensor:
     """spiral_tpu.core.sampling.uniform_residues(jax key, shape) for each
     of B keys, from their uniform_key_words, bit for bit: (..., d) -> (B,
-    ..., 2, d) int32."""
+    ..., 2, d) int32.  One launch of kernel K10 (csrc/threefry.cu) on a
+    CUDA tensor, uniform_residues_words_plain on the CPU."""
+    if kernels.on_cpu(words):
+        return uniform_residues_words_plain(words, shape)
+    shape = tuple(shape)
+    n = math.prod(shape)
+    B = words.shape[2] if words.dim() == 4 else 0
+    if words.dtype != torch.int64 or not words.is_contiguous() or \
+            tuple(words.shape) != (4, 2, B, 1) or not shape or n >= 1 << 31:
+        raise ValueError(
+            f"K10: want contiguous int64 key words (4, 2, B, 1) and fewer "
+            f"than 2^31 counters a query, got {words.dtype} "
+            f"{tuple(words.shape)} and shape {shape}")
+    out = torch.empty((B,) + shape[:-1] + (2, shape[-1]), dtype=torch.int32,
+                      device=words.device)
+    if B * n:
+        kernels.check(kernels.lib().spiral_uniform_residues(
+            words.data_ptr(), B, n, shape[-1], P_I, threefry.randint_mult(P_I),
+            B_I, threefry.randint_mult(B_I), out.data_ptr(), kernels.stream()),
+            "spiral_uniform_residues")
+        kernels.LAUNCHES["threefry"] += 1
+    return out
+
+
+def uniform_residues_words_plain(words: torch.Tensor, shape) -> torch.Tensor:
+    """uniform_residues_words in torch ops: four random_bits draws of
+    int64 words and randint's range reduction."""
     x, y = (threefry.randint_u32(threefry.random_bits(words[i], shape),
                                  threefry.random_bits(words[i + 1], shape),
                                  maxval) for i, maxval in ((0, P_I), (2, B_I)))

@@ -81,9 +81,14 @@ def randint_u32(hi: torch.Tensor, lo: torch.Tensor, maxval: int):
     """jax.random.randint(key, shape, 0, maxval, dtype=uint32) from the
     random_bits of the key's two randint_keys sets, with its uint32
     wrap-around in the range reduction."""
-    span = maxval
-    assert 0 < span <= M32
-    mult = (1 << 16) % span
-    mult = (mult * mult & M32) % span
+    span, mult = maxval, randint_mult(maxval)
     off = ((hi % span) * mult & M32) + lo % span
     return (off & M32) % span
+
+
+def randint_mult(maxval: int) -> int:
+    """randint's multiplier for the high word: 2^32 mod maxval, as JAX
+    forms it in uint32 ((2^16 mod maxval)^2 mod maxval)."""
+    assert 0 < maxval <= M32
+    mult = (1 << 16) % maxval
+    return (mult * mult & M32) % maxval

@@ -28,7 +28,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("ntt.cu", "firstdim.cu", "fold.cu", "expand.cu", "pack.cu",
-           "fold_mxu.cu", "convert.cu")
+           "fold_mxu.cu", "convert.cu", "threefry.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "ntt_reg.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -41,9 +41,9 @@ REG_NTT_DEGREES = (256, 2048)
 LAUNCHES = {"ntt": 0, "firstdim": 0, "fold": 0, "expand": 0,
             "fold_pack": 0, "pack": 0, "fold_batch": 0, "fold_pack_batch": 0,
             "auto": 0, "fold_ntt": 0, "fold_contract": 0, "compose": 0,
-            "convert": 0}
+            "convert": 0, "threefry": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     "spiral_ntt": (_P, _P, _P, _I, _I, _I, _P),
     "spiral_firstdim": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -61,6 +61,8 @@ _SIGNATURES = {
     "spiral_fold_contract": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "spiral_compose": (_P, _I, _P, _P, _P, _I, _P),
     "spiral_convert": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
+    "spiral_uniform_residues": (_P, _I, ctypes.c_longlong, _I, _U, _U, _U,
+                                _U, _P, _P),
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K9 against their plain PyTorch versions on the card,
+"""CUDA kernels K1-K10 against their plain PyTorch versions on the card,
 bit for bit.  Every test is marked `gpu` and takes the `cuda` fixture, which
 skips it on a machine without a CUDA device.  On the card (no jax there, so skip the suite's
 conftest, which imports it):
@@ -13,6 +13,8 @@ import torch
 from spiral_tpu_torch.params import B_I, P_I, preset
 from spiral_tpu_torch import kernels
 from spiral_tpu_torch.arith import ntt
+from spiral_tpu_torch.core import sampling
+from spiral_tpu_torch.crypto.query import seed_words
 from spiral_tpu_torch.server import convert, expand, firstdim, fold, pack
 
 pytestmark = pytest.mark.gpu
@@ -434,3 +436,37 @@ def test_k9_shapes_only(cuda):
         with pytest.raises(ValueError):
             convert.convert_cts(x, w, v.contiguous(), g2, p)
     assert kernels.LAUNCHES["compose"] == kernels.LAUNCHES["convert"] == 0
+
+
+# tests/test_torch_threefry.py's SEEDS (that file imports jax): negative
+# seeds and the int32 edges
+THREEFRY_SEEDS = [0, 1, 987654, 2**31 - 1, -1, -(2**31), -123456789]
+
+
+# one packed query (a ct) and the stream variant's 542 direct cts; a query
+# at a time and a batch of 8
+@pytest.mark.parametrize("shape", [(1, 1, 1, 2048), (542, 1, 1, 2048)])
+@pytest.mark.parametrize("B", [1, 8])
+def test_threefry_kernel(cuda, B, shape):
+    seeds = THREEFRY_SEEDS + [42]
+    batches = [[s] for s in seeds] if B == 1 else [seeds]
+    for batch in batches:
+        words = seed_words(batch, "cuda")
+        got = sampling.uniform_residues_words(words, shape)
+        want = sampling.uniform_residues_words_plain(words, shape)
+        torch.cuda.synchronize()
+        assert got.shape == (B,) + shape[:-1] + (2, shape[-1])
+        assert torch.equal(got, want)
+    assert kernels.LAUNCHES["threefry"] == len(batches)
+
+
+def test_threefry_kernel_shapes_only(cuda):
+    """K10 takes the (4, 2, B, 1) int64 words uniform_key_words stages."""
+    words = seed_words([3, -3], "cuda")
+    for bad in (words[:2], words.to(torch.int32), words[..., 0],
+                words.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError):
+            sampling.uniform_residues_words(bad, (1, 2048))
+    with pytest.raises(ValueError):
+        sampling.uniform_residues_words(words, (1 << 20, 2048))
+    assert kernels.LAUNCHES["threefry"] == 0
